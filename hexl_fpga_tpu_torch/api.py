@@ -1,0 +1,145 @@
+"""Public API: the KeySwitch section of `host/inc/hexl-fpga.h`, in Python.
+
+Same names, same signatures (numpy arrays in place of raw pointers), same
+async worksize/Completed protocol, same validation
+(`host/src/keyswitch.cpp` FPGA_ASSERT wrappers) as `hexl_fpga_tpu/api.py`.
+DyadicMultiply and the deprecated NTT/INTT section are not ported yet and
+raise.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+
+from .runtime import scheduler as sched
+from .utils.debug import hexl_assert
+
+
+def acquire_FPGA_resources() -> None:
+    """Reserve compute resources (`hexl-fpga.h:15`): starts the worker(s) on
+    the device RUN_CHOICE selects.  Alias: acquire_GPU_resources."""
+    sched.acquire()
+
+
+def release_FPGA_resources() -> None:
+    sched.release()
+
+
+acquire_GPU_resources = acquire_FPGA_resources
+release_GPU_resources = release_FPGA_resources
+
+
+# -- KeySwitch section (`hexl-fpga.h:52-86`) ---------------------------------
+
+
+def set_worksize_KeySwitch(ws: int) -> None:
+    hexl_assert(ws > 0, "worksize must be positive")
+    sched.pool().set_worksize(sched.KEYSWITCH, int(ws))
+
+
+def KeySwitch(
+    result: np.ndarray,
+    t_target_iter_ptr: np.ndarray,
+    n: int,
+    decomp_modulus_size: int,
+    key_modulus_size: int,
+    rns_modulus_size: int,
+    key_component_count: int,
+    moduli: Sequence[int],
+    k_switch_keys: Sequence[np.ndarray],
+    modswitch_factors: Sequence[int],
+    twiddle_factors: Optional[np.ndarray] = None,
+    plain_modulus: Optional[int] = None,
+) -> None:
+    """plain_modulus (the BGV tail, an extension beyond the reference ABI) is
+    accepted by the signature but not ported yet: it raises."""
+    # validation mirrors `host/src/keyswitch.cpp:15-44`
+    hexl_assert(result is not None, "requires result != nullptr")
+    hexl_assert(t_target_iter_ptr is not None, "requires t_target_iter_ptr != nullptr")
+    hexl_assert(
+        n in (1024, 2048, 4096, 8192, 16384),
+        "requires n = 16384/8192/4096/2048/1024",
+    )
+    hexl_assert(decomp_modulus_size > 0, "requires decomp_modulus_size > 0")
+    hexl_assert(key_modulus_size <= 7, "requires key_modulus_size <= 7")
+    # rns_modulus_size is validated (>0) but never used by the reference's
+    # computation — it is stored and compared in the batch fence only
+    # (`host/src/keyswitch.cpp:28`, `host/src/fpga_int.cpp:443`); the device
+    # kernel launches receive n / decomp_modulus_size / modulus_meta
+    # (`host/src/fpga.cpp:1296-1301,1560-1565`).  Same here: any positive
+    # value is accepted, participates in the dispatch fence, and does not
+    # affect the result.
+    hexl_assert(rns_modulus_size > 0, "requires rns_modulus_size > 0")
+    hexl_assert(
+        key_modulus_size > decomp_modulus_size,
+        "requires key_modulus_size > decomp_modulus_size",
+    )
+    hexl_assert(key_component_count == 2, "requires key_component_count = 2")
+    hexl_assert(moduli is not None, "requires moduli != nullptr")
+    # check every key modulus (special prime included): the
+    # deferred-quotient MAC is exact only for q <= 2^52, so an out-of-range
+    # modulus must be rejected here, not mis-computed
+    for i in range(key_modulus_size):
+        hexl_assert(
+            (1 << 16) <= int(moduli[i]) <= (1 << 52),
+            "requires each modulus to be in the range of [2^16, 2^52]",
+        )
+    hexl_assert(k_switch_keys is not None, "requires k_switch_keys != nullptr")
+    hexl_assert(modswitch_factors is not None, "requires modswitch_factors != nullptr")
+    if plain_modulus is not None:
+        raise NotImplementedError("plain_modulus (BGV tail): not ported yet")
+
+    moduli_arr = np.asarray(moduli, dtype=np.uint64)[:key_modulus_size].copy()
+    msf = np.asarray(modswitch_factors, dtype=np.uint64)[:key_modulus_size].copy()
+    # fence on any config/keys change (`fpga_int.cpp:429-448`); keys are
+    # identified by object identity like the reference's pointer-keyed cache
+    keys_id = tuple(id(k) for k in k_switch_keys)
+    fence_key = (
+        int(n),
+        int(decomp_modulus_size),
+        int(key_modulus_size),
+        int(rns_modulus_size),
+        int(key_component_count),
+        moduli_arr.tobytes(),
+        msf.tobytes(),
+        keys_id,
+    )
+    sched.pool().enqueue(
+        sched.KEYSWITCH,
+        fence_key,
+        {
+            "result": result,
+            "t_target": t_target_iter_ptr,
+            "n": int(n),
+            "decomp_modulus_size": int(decomp_modulus_size),
+            "key_modulus_size": int(key_modulus_size),
+            "rns_modulus_size": int(rns_modulus_size),
+            "key_component_count": int(key_component_count),
+            "moduli": moduli_arr,
+            "k_switch_keys": list(k_switch_keys),
+            "modswitch_factors": msf,
+            "twiddle_factors": twiddle_factors,
+        },
+    )
+
+
+def KeySwitchCompleted() -> bool:
+    return sched.pool().completed(sched.KEYSWITCH)
+
+
+# -- not ported yet ----------------------------------------------------------
+
+
+def _not_ported(name: str):
+    def fn(*args, **kwargs):
+        raise NotImplementedError(f"{name}: not ported yet")
+
+    fn.__name__ = name
+    return fn
+
+
+DyadicMultiply = _not_ported("DyadicMultiply")
+_NTT = _not_ported("_NTT")
+_INTT = _not_ported("_INTT")

@@ -1,0 +1,43 @@
+"""Operands across the two packages' device representations.
+
+`hexl_fpga_tpu` carries every u64 as a (lo, hi) pair of uint32 planes and
+stages keyswitch operands as `(klo, khi, plo, phi)` key/precon planes and a
+`(K, 4)` uint32 `msf4` table; this package carries one int64 bit pattern per
+value.  These converters let a test feed both packages' `_build` bodies the
+same staged operands.  Inputs are anything `np.asarray` accepts (numpy or
+device arrays of the other package); nothing of that package is imported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops import word64 as w
+
+
+def pair_to_i64(lo, hi, device="cpu") -> torch.Tensor:
+    """(lo, hi) uint32 planes -> int64 tensor of the joined bit patterns."""
+    return w.from_u64_np(w.from_pair_np(np.asarray(lo), np.asarray(hi)), device)
+
+
+def i64_to_pair(x: torch.Tensor):
+    """int64 tensor -> (lo, hi) uint32 numpy planes."""
+    return w.to_pair_np(w.to_u64_np(x))
+
+
+def staged_keys_from_pairs(klo, khi, plo, phi, device="cpu"):
+    """The reference's staged `(klo, khi, plo, phi)` key and precon planes,
+    each (L, comp, K, n) uint32 -> this package's (keys, precons) int64
+    tensors of the same shape."""
+    return pair_to_i64(klo, khi, device), pair_to_i64(plo, phi, device)
+
+
+def msf_from_msf4(msf4) -> np.ndarray:
+    """(K, 4) uint32 [msf_lo, msf_hi, precon_lo, precon_hi] rows -> the (K, 2)
+    u64 host array of [msf, precon] rows that `KeySwitchContext._build` takes."""
+    m = np.asarray(msf4, dtype=np.uint32).reshape(-1, 4)
+    return np.stack(
+        [w.from_pair_np(m[:, 0], m[:, 1]), w.from_pair_np(m[:, 2], m[:, 3])],
+        axis=1,
+    )

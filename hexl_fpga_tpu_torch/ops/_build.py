@@ -1,0 +1,75 @@
+"""Build and load the CUDA kernels: nvcc -> shared library -> ctypes.
+
+The sources under `csrc/` have a plain C interface (no PyTorch headers), so a
+build takes seconds.  It happens at first use, into `_build/` inside the
+package (git-ignored), and the library's name carries a hash of the sources so
+a stale build is never loaded.  Nothing is built or looked up at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and under CUDA_HOME): the CUDA "
+        "kernels cannot be built on this machine"
+    )
+
+
+def build(source: str, deps=()) -> str:
+    """Compile csrc/<source> (+ headers `deps`, hashed only) into a shared
+    library and return its path.  Raises with the compiler's output on
+    failure."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (source, *deps):
+        with open(os.path.join(CSRC_DIR, name), "rb") as f:
+            h.update(f.read())
+    stem = os.path.splitext(source)[0]
+    out = os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:12]}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           os.path.join(CSRC_DIR, source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load(source: str, deps=()) -> ctypes.CDLL:
+    """The built library for csrc/<source>, loaded once per process."""
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = _libs[source] = ctypes.CDLL(build(source, deps))
+        return lib

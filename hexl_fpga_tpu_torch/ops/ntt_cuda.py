@@ -1,0 +1,312 @@
+"""Batched negacyclic NTT / INTT / keyswitch-tail on the card.
+
+Three wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
+each with its plain PyTorch version and a launch counter beside it:
+
+  ntt_fwd       replaces `hexl_fpga_tpu/ops/ntt_mxu_pallas.py` `_fwd_kernel`
+                (entries raw_fwd_call / fwd_ntt_fn): natural in -> bit-reversed
+                out under one modulus; the input may be ANY u64 (it is reduced
+                on load), the output is canonical.
+  ntt_inv       replaces `_inv_kernel` (raw_inv_call / inv_ntt_fn):
+                bit-reversed in -> natural out, n^-1 applied, canonical out.
+  ntt_fwd_tail  replaces the `raw_fwd_tail_call` kernel: `f = e + fix`,
+                forward NTT, then per element
+                `out = cond_sub(res + ReduceMod8(acc + 4q - g) * msf, q)`.
+
+What bounds them on an H100: by the count, bytes and multiplies are within a
+factor of two of each other.  A coefficient moves 16 bytes (32 in the tail)
+and runs log2(n)/2 Harvey butterflies of three 64x64 multiplies, about ten
+32-bit multiply-adds each; at n = 16384 against 3.35 TB/s and the card's 32-bit
+integer rate, all three come out bytes-bound, the transforms by a few percent
+only (`chip_smoke.py` computes both).  These first versions run
+several times above that bound (times in `PERF.md`): what limits them is the
+butterflies' shared-memory traffic with one barrier per stage and, at the 32
+and 64 rows of the inverse and the tail, a grid that fills a quarter to a half
+of the 132 SMs.  The design keeps a whole row in one block's shared memory so
+device memory is touched once each way, and passes q, floor(2^64/q), fix and
+the modswitch factor as runtime arguments so one build serves every modulus.
+
+A wrapper launches its kernel for a CUDA tensor and runs the plain version
+only for a CPU tensor; a CUDA tensor never reaches the plain version through
+a wrapper.  The plain versions are staged butterflies on int64 bit patterns
+(`word64`) with the same in/out contract, device-agnostic, and are the
+kernels' oracle on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from . import _build, nt, twiddles, word64 as w
+
+# launches per kernel since the last reset; a wrapper adds one exactly where
+# it launches its kernel
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0}
+_launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
+
+KERNEL_SOURCE = "ntt_kernels.cu"
+KERNEL_DEPS = ("ntt_kernels.cuh",)
+
+
+def reset_launch_counts() -> None:
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# per-modulus tables
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True, eq=False)
+class ModulusTables:
+    """Everything one (n, q, psi) transform needs, on one device."""
+
+    n: int
+    q: int
+    q_barr: int  # floor(2^64 / q)
+    tab: torch.Tensor  # (4, n) int64: fwd, fwd_precon, inv, inv_precon
+    inv_n: int
+    inv_n_precon: int
+    inv_n_w: int
+    inv_n_w_precon: int
+
+
+@functools.lru_cache(maxsize=64)
+def _modulus_tables(n: int, q: int, psi, device: str) -> ModulusTables:
+    if not (nt.is_power_of_two(n) and n >= 4):
+        raise ValueError(f"n must be a power of two >= 4, got {n}")
+    if not 2 < q < (1 << 62):
+        raise ValueError("the butterflies need 4q < 2^64: q must be below 2^62")
+    t = twiddles.ntt_tables(n, q, psi)
+    tab = np.stack([t.fwd, t.fwd_precon, t.inv, t.inv_precon])
+    return ModulusTables(
+        n=n, q=q, q_barr=nt.barrett_factor(1, 64, q),
+        tab=w.from_u64_np(tab, device),
+        inv_n=t.inv_n, inv_n_precon=nt.barrett_factor(t.inv_n, 64, q),
+        inv_n_w=t.inv_n_w, inv_n_w_precon=nt.barrett_factor(t.inv_n_w, 64, q),
+    )
+
+
+def modulus_tables(n: int, q: int, psi: int | None = None,
+                   device="cpu") -> ModulusTables:
+    """Tables for (n, q) on `device`; psi (a primitive 2n-th root, e.g. from a
+    caller's twiddle table) defaults to the minimal one."""
+    return _modulus_tables(int(n), int(q), None if psi is None else int(psi),
+                           str(torch.device(device)))
+
+
+# ---------------------------------------------------------------------------
+# kernel binding
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load(KERNEL_SOURCE, KERNEL_DEPS)
+    p, u, i = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
+    lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, p]
+    lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
+    lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, p]
+    for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_kernels() -> None:
+    """Compile and load the kernels now (otherwise done at first launch)."""
+    _lib()
+
+
+def _check(x: torch.Tensor, tabs: ModulusTables, name: str) -> None:
+    if x.dtype != torch.int64:
+        raise TypeError(f"{name}: expected int64 bit patterns, got {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != tabs.n or x.shape[0] < 1:
+        raise ValueError(f"{name}: expected (rows >= 1, {tabs.n}), got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")
+    if x.device != tabs.tab.device:
+        raise ValueError(
+            f"{name}: tensor on {x.device}, tables on {tabs.tab.device}"
+        )
+
+
+def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
+    """Call one C entry on x's device and current stream; raise if the launch
+    was refused."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = entry(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+    with _launches_lock:
+        LAUNCHES[name] += 1
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+
+def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """All forward stages on canonical rows (R, n); returns values in [0, 4q)."""
+    n, q = tabs.n, tabs.q
+    R = x.shape[0]
+    fwd, fwd_p = tabs.tab[0], tabs.tab[1]
+    t, m = n >> 1, 1
+    while m < n:
+        v = x.view(R, m, 2, t)
+        W = fwd[m : 2 * m].view(1, m, 1)
+        Wp = fwd_p[m : 2 * m].view(1, m, 1)
+        tx = w.cond_sub64(v[:, :, 0, :], 2 * q)
+        T = w.mul_mod_lazy(v[:, :, 1, :], W, Wp, q)
+        x = torch.stack([tx + T, tx + 2 * q - T], dim=2).view(R, n)
+        m <<= 1
+        t >>= 1
+    return x
+
+
+def _reduce4(x, q: int):
+    return w.cond_sub64(w.cond_sub64(x, 2 * q), q)
+
+
+def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd (any device)."""
+    _check(x, tabs, "ntt_fwd_plain")
+    x = w.barrett_canonical(x, tabs.q, tabs.q_barr)
+    return _reduce4(_fwd_stages_plain(x, tabs), tabs.q)
+
+
+def ntt_fwd(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """Forward negacyclic NTT of each row of x (R, n) int64 under tabs.q:
+    NTT(x mod q), bit-reversed order, canonical.  x may hold any u64."""
+    _check(x, tabs, "ntt_fwd")
+    if x.device.type == "cpu":
+        return ntt_fwd_plain(x, tabs)
+    out = torch.empty_like(x)
+    _launch("ntt_fwd", _lib().hexl_ntt_fwd, x, x.data_ptr(), out.data_ptr(),
+            tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# inverse
+# ---------------------------------------------------------------------------
+
+
+def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """Plain PyTorch version of ntt_inv (any device)."""
+    _check(x, tabs, "ntt_inv_plain")
+    n, q = tabs.n, tabs.q
+    R = x.shape[0]
+    inv, inv_p = tabs.tab[2], tabs.tab[3]
+    x = w.barrett_canonical(x, q, tabs.q_barr)
+    t, root, m = 1, 1, n >> 1
+    while m > 1:
+        v = x.view(R, m, 2, t)
+        W = inv[root : root + m].view(1, m, 1)
+        Wp = inv_p[root : root + m].view(1, m, 1)
+        X, Y = v[:, :, 0, :], v[:, :, 1, :]
+        x = torch.stack(
+            [w.cond_sub64(X + Y, 2 * q),
+             w.mul_mod_lazy(X + 2 * q - Y, W, Wp, q)], dim=2,
+        ).view(R, n)
+        root += m
+        t <<= 1
+        m >>= 1
+    # last stage fused with the n^-1 scaling
+    h = n >> 1
+    X, Y = x[:, :h], x[:, h:]
+    tx = w.cond_sub64(X + Y, 2 * q)
+    ty = X + 2 * q - Y
+    lo = w.mul_mod_lazy(tx, tabs.inv_n, tabs.inv_n_precon, q)
+    hi = w.mul_mod_lazy(ty, tabs.inv_n_w, tabs.inv_n_w_precon, q)
+    return w.cond_sub64(torch.cat([lo, hi], dim=1), q)
+
+
+def ntt_inv(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """Inverse negacyclic NTT of each row of x (R, n) int64 under tabs.q:
+    bit-reversed in, natural out, scaled by n^-1, canonical.  The canonical
+    output matters: callers re-reduce its integer value under other moduli."""
+    _check(x, tabs, "ntt_inv")
+    if x.device.type == "cpu":
+        return ntt_inv_plain(x, tabs)
+    out = torch.empty_like(x)
+    _launch("ntt_inv", _lib().hexl_ntt_inv, x, x.data_ptr(), out.data_ptr(),
+            tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr,
+            tabs.inv_n, tabs.inv_n_precon, tabs.inv_n_w, tabs.inv_n_w_precon)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keyswitch tail
+# ---------------------------------------------------------------------------
+
+
+def ntt_fwd_tail_plain(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
+                       msf_precon: int) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd_tail (any device)."""
+    for name, x in (("e", e), ("acc", acc), ("res", res)):
+        _check(x, tabs, f"ntt_fwd_tail_plain({name})")
+    q = tabs.q
+    f = w.barrett_canonical(w.add64(e, fix), q, tabs.q_barr)
+    g = _reduce4(_fwd_stages_plain(f, tabs), q)
+    a = w.barrett_canonical(acc, q, tabs.q_barr)
+    t1 = w.reduce_mod_factor(w.add64(w.sub64(a, g), 4 * q), q, 8)
+    delta = w.cond_sub64(w.mul_mod_lazy(t1, msf, msf_precon, q), q)
+    return w.cond_sub64(w.add64(res, delta), q)
+
+
+def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
+                 msf_precon: int) -> torch.Tensor:
+    """Keyswitch tail for one decomp modulus q, one pass over (R, n) rows:
+
+        g = NTT_q(e + fix)                  e + fix may be any u64
+        t1 = ReduceMod8((acc mod q) + 4q - g)   acc: any lazy u64 sum
+        out = cond_sub(res + t1 * msf mod q, q)
+
+    msf < q with msf_precon = floor(msf << 64 / q) are runtime scalars.  The
+    single conditional subtract makes out canonical exactly when res < q; a
+    caller's out-of-range res passes through as in the reference."""
+    for name, x in (("e", e), ("acc", acc), ("res", res)):
+        _check(x, tabs, f"ntt_fwd_tail({name})")
+    if e.shape != acc.shape or e.shape != res.shape:
+        raise ValueError("ntt_fwd_tail: e, acc, res must share one shape")
+    if e.device.type == "cpu":
+        return ntt_fwd_tail_plain(e, acc, res, tabs, fix, msf, msf_precon)
+    out = torch.empty_like(e)
+    _launch("ntt_fwd_tail", _lib().hexl_ntt_fwd_tail, e, e.data_ptr(),
+            acc.data_ptr(), res.data_ptr(), out.data_ptr(),
+            tabs.tab.data_ptr(), e.shape[0], tabs.n, tabs.q, tabs.q_barr,
+            int(fix), int(msf), int(msf_precon))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# numpy conveniences
+# ---------------------------------------------------------------------------
+
+
+def _run_np(fn, a, q: int, device) -> np.ndarray:
+    a = np.asarray(a, dtype=np.uint64)
+    n = a.shape[-1]
+    tabs = modulus_tables(n, q, device=device)
+    x = w.from_u64_np(a.reshape(-1, n), device)
+    return w.to_u64_np(fn(x, tabs)).reshape(a.shape)
+
+
+def fwd_ntt(a, q: int, device="cuda") -> np.ndarray:
+    """Forward NTT of u64 rows (..., n) under q, canonical output."""
+    return _run_np(ntt_fwd, a, q, device)
+
+
+def inv_ntt(a, q: int, device="cuda") -> np.ndarray:
+    """Inverse NTT of u64 rows (..., n) under q, canonical output."""
+    return _run_np(ntt_inv, a, q, device)

@@ -1,0 +1,123 @@
+"""Batch executors: route work batches to a compute backend.
+
+The RUN_CHOICE dispatch of the reference (`host/src/fpga_int.cpp:40-64,
+195-207,464-482`):
+  0 -> CPU golden model (the Intel-HEXL fallback),
+  1 -> emulation: the torch path on device="cpu" (plain versions of the kernels),
+  2 -> accelerated: the torch path on CUDA; no CUDA device is an error.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..ops import golden, keyswitch_cuda, word64 as w
+from . import scheduler as sched
+
+
+def make_executor(run_choice: int, device_index: int):
+    if run_choice == 0:
+        return GoldenExecutor()
+    return TorchExecutor(device_index, force_cpu=(run_choice == 1))
+
+
+class _Base:
+    def run_batch(self, batch: List["sched.WorkItem"]) -> None:
+        op = batch[0].op_type
+        getattr(self, f"run_{op.lower()}")(batch)
+
+    def submit(self, batch: List["sched.WorkItem"]):
+        """Dispatch a batch without blocking on results.
+
+        Returns a finalize callable that demultiplexes results into the
+        caller buffers (or None if the op ran synchronously).  The worker
+        overlaps finalize of batch i-1 with device compute of batch i —
+        the reference's ping-pong read of the previous batch's output
+        (`host/src/fpga.cpp:1517-1545`)."""
+        op = batch[0].op_type
+        fn = getattr(self, f"submit_{op.lower()}", None)
+        if fn is None:
+            self.run_batch(batch)
+            return None
+        return fn(batch)
+
+
+class GoldenExecutor(_Base):
+    """CPU golden-model backend (RUN_CHOICE=0)."""
+
+    def run_keyswitch(self, batch):
+        for item in batch:
+            a = item.args
+            out = golden.keyswitch(
+                a["result"],
+                a["t_target"],
+                a["n"],
+                a["decomp_modulus_size"],
+                a["key_modulus_size"],
+                a["rns_modulus_size"],
+                a["key_component_count"],
+                a["moduli"],
+                a["k_switch_keys"],
+                a["modswitch_factors"],
+                a["twiddle_factors"],
+            )
+            np.copyto(a["result"], out.reshape(a["result"].shape))
+
+
+class TorchExecutor(_Base):
+    """torch backend (RUN_CHOICE=1 on the CPU, =2 on CUDA)."""
+
+    def __init__(self, device_index: int, force_cpu: bool):
+        if force_cpu:
+            self.device = torch.device("cpu")
+        elif not torch.cuda.is_available():
+            raise RuntimeError(
+                "RUN_CHOICE=2 needs a CUDA device and none is available; "
+                "set RUN_CHOICE=1 for the same code on the CPU"
+            )
+        else:
+            self.device = torch.device(
+                "cuda", device_index % torch.cuda.device_count()
+            )
+
+    def bind_thread(self) -> None:
+        """Make this executor's device the calling thread's current one."""
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+
+    def submit_keyswitch(self, batch):
+        a = batch[0].args
+        ctx = keyswitch_cuda.get_context(
+            a["n"],
+            a["decomp_modulus_size"],
+            a["key_modulus_size"],
+            a["rns_modulus_size"],
+            a["key_component_count"],
+            a["moduli"],
+            a["twiddle_factors"],
+            device=self.device,
+        )
+        ts = np.stack(
+            [np.asarray(i.args["t_target"], dtype=np.uint64).ravel() for i in batch]
+        )
+        rs = np.stack(
+            [np.asarray(i.args["result"], dtype=np.uint64).ravel() for i in batch]
+        )
+        out = ctx.dispatch_batch(
+            rs, ts, a["k_switch_keys"], a["modswitch_factors"]
+        )
+
+        def finalize():
+            # the blocking device->host copy
+            host = w.to_u64_np(out).reshape(len(batch), -1)
+            for b, item in enumerate(batch):
+                np.copyto(item.args["result"],
+                          host[b].reshape(item.args["result"].shape))
+
+        return finalize
+
+    def run_keyswitch(self, batch):
+        self.submit_keyswitch(batch)()

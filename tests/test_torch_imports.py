@@ -1,0 +1,99 @@
+"""The port stands alone: importing it (and everything chip_smoke.py imports
+at module level) pulls in neither jax nor the JAX package, and a CUDA request
+without a CUDA device raises instead of falling back."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+PORT_MODULES = [
+    "hexl_fpga_tpu_torch", "hexl_fpga_tpu_torch.api", "hexl_fpga_tpu_torch.config",
+    "hexl_fpga_tpu_torch.convert", "hexl_fpga_tpu_torch.ops._build",
+    "hexl_fpga_tpu_torch.ops.golden", "hexl_fpga_tpu_torch.ops.keyswitch_cuda",
+    "hexl_fpga_tpu_torch.ops.nt", "hexl_fpga_tpu_torch.ops.ntt_cuda",
+    "hexl_fpga_tpu_torch.ops.twiddles", "hexl_fpga_tpu_torch.ops.word64",
+    "hexl_fpga_tpu_torch.runtime.executors", "hexl_fpga_tpu_torch.runtime.scheduler",
+    "hexl_fpga_tpu_torch.utils.debug", "hexl_fpga_tpu_torch.utils.keycache",
+    "hexl_fpga_tpu_torch.utils.vectors",
+]
+
+
+def run_py(code, **env):
+    e = {k: v for k, v in os.environ.items() if k != "RUN_CHOICE"}
+    e.update(env)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=e,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    code = (
+        "import sys, importlib\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'jaxlib' or m == 'hexl_fpga_tpu'\n"
+        "       or m.startswith('hexl_fpga_tpu.')]\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    res = run_py(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+
+
+def test_no_import_statement_names_jax_or_the_jax_package():
+    import re
+
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|hexl_fpga_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "hexl_fpga_tpu_torch")):
+        files += [os.path.join(d, f) for f in names if f.endswith(".py")]
+    assert len(files) > 15
+    for f in files:
+        with open(f) as fh:
+            assert not pat.search(fh.read()), f
+
+
+def test_chip_smoke_fails_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_cuda_launch_path_raises_without_cuda():
+    """No silent fallback: a CUDA request with no device raises at every
+    level (tables, numpy conveniences, context, runtime)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    code = (
+        "import numpy as np\n"
+        "from hexl_fpga_tpu_torch.ops import ntt_cuda, keyswitch_cuda\n"
+        "import hexl_fpga_tpu_torch as hexl\n"
+        "def raises(fn):\n"
+        "    try: fn()\n"
+        "    except (RuntimeError, AssertionError) as e: return True\n"
+        "    return False\n"
+        "a = np.zeros((1, 1024), dtype=np.uint64)\n"
+        "assert raises(lambda: ntt_cuda.fwd_ntt(a, 1073750017))\n"
+        "assert raises(lambda: ntt_cuda.modulus_tables(1024, 1073750017, device='cuda'))\n"
+        "assert raises(lambda: keyswitch_cuda.get_context(1024, 1, 2, 2, 2,\n"
+        "              [1073750017, 1073872897]))\n"
+        "assert raises(hexl.acquire_FPGA_resources)\n"
+        "assert ntt_cuda.LAUNCHES == {'ntt_fwd': 0, 'ntt_inv': 0, 'ntt_fwd_tail': 0}\n"
+        "print('raised')\n"
+    )
+    res = run_py(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "raised"

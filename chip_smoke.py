@@ -5,23 +5,39 @@
 
 Needs one CUDA device, nvcc, and nothing from the network.  It
 
-  1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/,
+  1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/ (one nvcc per
+     source, side by side),
   2. holds each kernel against its plain PyTorch version on the card, bit for
-     bit, at the shapes the main path gives it (n = 16384, the frozen
-     vector's seven moduli) and at n = 1024, and times both,
+     bit, at the shapes its path gives it, and times both: the three keyswitch
+     transforms at n = 16384 under the frozen vector's seven moduli and at
+     n = 1024; `dyadic_mul` at (32, 2, 14, 16384) on canonical operands,
+     operands in [0, 4q) and random 64-bit ones, on the ramp stimulus over
+     q = 10, 20, 30 at n = 64 and under q = 2, 3; the wide transforms at
+     (32, 32768) under a 61-bit prime on canonical and random 64-bit input,
   3. drives the main path through the public API: 64 KeySwitch ops at
      16384_6_7_7_2 in batches of 32 with the frozen vector's moduli, keys,
      twiddles and modswitch factors; two ops carry the vector's own operands
      (checked against its expected_output), the rest operands drawn from a
      numpy seed; EVERY op is checked against the golden model, and the launch
-     counters must read 7 forward / 7 inverse / 6 tail launches per batch.
+     counters must read 7 forward / 7 inverse / 6 tail launches per batch,
+  4. drives the DyadicMultiply path: 64 ops at n = 16384 under 14 moduli of 50
+     bits in batches of 32, every op checked against an oracle that is not the
+     kernel's arithmetic (the first 8 the bignum golden model, the rest a
+     vectorised Harvey product), 2 launches,
+  5. drives the _NTT / _INTT path: 1024 ops each way at n = 16384 under a
+     52-bit prime in batches of 256 with the caller's tables, then 64 each way
+     at n = 32768 under a 61-bit prime in batches of 32; every op against the
+     golden transforms and the round trip against the input; 4 + 4 launches of
+     the row kernels, 2 + 2 of the wide ones.
 
-Every phase asserts; nothing is caught.  One JSON object per line; the last
-line is {"ok": true, "device": {...}}.  Exit code 0 only if all of it passed.
+The launch counters are set to 0 just before each path's counted pass and read
+just after it.  Every phase asserts; nothing is caught.  One JSON object per
+line; the last line is {"ok": true, "device": {...}}.  Exit code 0 only if all
+of it passed.
 
-`main(rehearse=True)` walks the same control flow on the CPU at n = 1024 with
-the kernels' plain versions (no build, no kernel comparison, no timings): a
-check of the script, not of the card.
+`main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
+a few ops at n = 32768) with the kernels' plain versions (no build, no kernel
+comparison, no timings): a check of the script, not of the card.
 """
 
 from __future__ import annotations
@@ -31,21 +47,33 @@ import os
 import subprocess
 import sys
 import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
-from hexl_fpga_tpu_torch.ops import golden, keyswitch_cuda, ntt_cuda, word64 as w
+from hexl_fpga_tpu_torch.ops import (
+    dyadic_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles, word64 as w,
+)
 from hexl_fpga_tpu_torch.utils import vectors
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VECTOR = os.path.join(HERE, "tests", "testdata", "16384_6_7_7_2_0.json.gz")
 KERNEL_SRC = "hexl_fpga_tpu_torch/csrc/ntt_kernels.cu"
+DYADIC_SRC = "hexl_fpga_tpu_torch/csrc/dyadic_kernels.cu"
 BATCH = 32
 WORKSIZE = 64
 N_VECTOR_OPS = 2  # ops that carry the frozen vector's own operands
+
+# the DyadicMultiply path: the reference bench shape
+DYADIC_N, DYADIC_MODULI, DYADIC_BITS = 16384, 14, 50
+DYADIC_BIGNUM_OPS = 8  # ops checked against the (slow) bignum golden model
+# the _NTT / _INTT path: (n, modulus bits, ops, batch); the reference fixture
+# runs 4096 ops at n = 16384, 1024 keep the golden check of every op short
+NTT_CELLS = ((16384, 52, 1024, 256), (32768, 61, 64, 32))
 
 # Published peaks of one H100 SXM.  The data sheet has no integer rate: the
 # 32-bit integer multiply-add runs on half of the lanes that give 67 TFLOP/s
@@ -57,6 +85,8 @@ IMAD_MULHI64 = 4
 IMAD_MULLO64 = 3
 IMAD_LAZY_MUL = IMAD_MULHI64 + 2 * IMAD_MULLO64  # Harvey multiply
 IMAD_BARRETT = IMAD_MULHI64 + IMAD_MULLO64
+# reference MultMod: the full product, then Barrett (mulhi and mullo)
+IMAD_MULT_MOD = 2 * (IMAD_MULHI64 + IMAD_MULLO64)
 
 
 def emit(obj) -> None:
@@ -90,6 +120,37 @@ def bound(rows: int, n: int, arrays: int, extra_imad_per_coeff: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def dyadic_bound(B: int, M: int, n: int):
+    """(bound_ms, bound_by) for dyadic_mul: four u64 read and three written
+    per (item, modulus, coefficient) plus the (3, M) constants, against four
+    MultMods."""
+    t_bytes = (56 * B * M * n + 24 * M) / PEAK_BYTES_PER_S * 1e3
+    t_ops = B * M * n * 4 * IMAD_MULT_MOD / PEAK_IMAD32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def rotating(make, nbytes: int):
+    """A source of inputs that cycles over enough copies (at least two) to
+    exceed the L2 cache, so timed reads come from device memory."""
+    copies = int(100e6 // nbytes) + 2
+    sets = [make() for _ in range(copies)]
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % copies
+        return sets[state["i"]]
+
+    return nxt
+
+
+def assert_same(name, got, want):
+    """Zero tolerance; returns the largest absolute difference (0)."""
+    torch.cuda.synchronize()  # a fault inside the kernel surfaces here
+    err = int((got - want).abs().max().item())
+    assert err == 0, f"{name}: differs from the plain version by up to {err}"
+    return err
+
+
 def rand_u64(rng, shape, bits, device):
     return w.from_u64_np(
         rng.integers(0, 1 << bits, size=shape, dtype=np.uint64), device
@@ -114,10 +175,7 @@ def check_kernels(vec, device):
     max_err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0}
 
     def same(name, got, want):
-        torch.cuda.synchronize()  # a fault inside the kernel surfaces here
-        err = int((got - want).abs().max().item())
-        max_err[name] = max(max_err[name], err)
-        assert err == 0, f"{name}: differs from the plain version by up to {err}"
+        max_err[name] = max(max_err[name], assert_same(name, got, want))
 
     def tail_args(j, rows, tabs):
         q = tabs.q
@@ -160,21 +218,10 @@ def check_kernels(vec, device):
     # device memory
     tabs = ctx._tabs[0]
 
-    def rotating(make, rows):
-        copies = int(100e6 // (rows * n * 8)) + 2
-        sets = [make() for _ in range(copies)]
-        state = {"i": 0}
-
-        def nxt():
-            state["i"] = (state["i"] + 1) % copies
-            return sets[state["i"]]
-
-        return nxt
-
-    fwd_in = rotating(lambda: rand_u64(rng, (L * BATCH, n), 53, device), L * BATCH)
-    inv_in = rotating(lambda: rand_u64(rng, (BATCH, n), 50, device), BATCH)
-    inv2_in = rotating(lambda: rand_u64(rng, (2 * BATCH, n), 50, device), 2 * BATCH)
-    tail_in = rotating(lambda: tail_args(0, 2 * BATCH, tabs), 2 * BATCH)
+    fwd_in = rotating(lambda: rand_u64(rng, (L * BATCH, n), 53, device), L * BATCH * n * 8)
+    inv_in = rotating(lambda: rand_u64(rng, (BATCH, n), 50, device), BATCH * n * 8)
+    inv2_in = rotating(lambda: rand_u64(rng, (2 * BATCH, n), 50, device), 2 * BATCH * n * 8)
+    tail_in = rotating(lambda: tail_args(0, 2 * BATCH, tabs), 2 * BATCH * n * 8)
 
     entries = []
     for name, rows, arrays, extra, kern, plain, replaces in (
@@ -207,6 +254,131 @@ def check_kernels(vec, device):
                 lambda: ntt_cuda.ntt_inv(inv2_in(), tabs), 20)
         entries.append(entry)
     return entries
+
+
+def dyadic_moduli():
+    return [int(q) for q in nt.generate_primes(DYADIC_MODULI, DYADIC_BITS, DYADIC_N)]
+
+
+def ramp_operands(num_moduli, n, b=0):
+    """One op of the reference's ramp stimulus
+    (`tests/test_dyadic_multiply.cpp:32-109`): moduli 10, 20, 30, ... and raw
+    operands far beyond 4q, shaped (2, M, n)."""
+    i = np.arange(n, dtype=np.uint64)
+    rows = lambda off: np.stack(
+        [np.uint64(b + off) + i + np.uint64(m * n) for m in range(num_moduli)])
+    moduli = [(b + m + 1) * 10 for m in range(num_moduli)]
+    return moduli, np.stack([rows(1), rows(11)]), np.stack([rows(2), rows(22)])
+
+
+def check_dyadic_kernel(device):
+    """dyadic_mul against its plain version, then its times; returns its
+    `kernels` entry."""
+    B, M, n = BATCH, DYADIC_MODULI, DYADIC_N
+    moduli = dyadic_moduli()
+    runner = dyadic_cuda.runner(moduli, device)
+    rng = np.random.default_rng(4)
+    qcol = np.array(moduli, dtype=np.uint64).reshape(1, 1, M, 1)
+
+    def operands(factor=None):
+        """(B, 2, M, n) operands: below factor * q, or any u64."""
+        a = rng.integers(0, 1 << 64, size=(B, 2, M, n), dtype=np.uint64)
+        if factor is not None:
+            a %= np.uint64(factor) * qcol
+        return w.from_u64_np(a, device)
+
+    def same(r, x, y):
+        return assert_same("dyadic_mul", r.run(x, y),
+                           dyadic_cuda.dyadic_multiply_plain(x, y, r.meta))
+
+    err = 0
+    for factor in (1, 4, None):
+        err = max(err, same(runner, operands(factor), operands(factor)))
+    # the ramp over the composite moduli 10, 20, 30 at n = 64, and len = 0
+    q, a, b = ramp_operands(3, 64)
+    small = [(q, a[None], b[None])]
+    for q in ([2, 3], [3, 10, 2]):
+        shape = (3, 2, len(q), 100)
+        small.append((q, rng.integers(0, 64, size=shape, dtype=np.uint64),
+                      rng.integers(0, 1 << 64, size=shape, dtype=np.uint64)))
+    for q, a, b in small:
+        r = dyadic_cuda.runner(q, device)
+        x, y = w.from_u64_np(a, device), w.from_u64_np(b, device)
+        err = max(err, same(r, x, y))
+    want = golden.dyadic_multiply(small[0][1][0], small[0][2][0], 64, small[0][0], 3)
+    got = dyadic_cuda.dyadic_multiply_np(small[0][1][0], small[0][2][0], 64,
+                                         small[0][0], 3, device=device)
+    np.testing.assert_array_equal(got, want)
+
+    ins = rotating(lambda: (operands(1), operands(1)), 2 * B * 2 * M * n * 8)
+    b_ms, b_by = dyadic_bound(B, M, n)
+    return {
+        "name": "dyadic_mul", "route": "cuda", "source": DYADIC_SRC,
+        "replaces": "hexl_fpga_tpu/ops/dyadic_pallas.py:129",
+        "shape": [B, 2, M, n], "launches": None, "max_abs_err": err,
+        "ms": time_ms(lambda: runner.run(*ins()), 20),
+        "plain_ms": time_ms(
+            lambda: dyadic_cuda.dyadic_multiply_plain(*ins(), runner.meta), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a 64-bit modular product
+        "library_ms": None,
+    }
+
+
+def transform_entry(name, replaces, rows, n, extra_imad, kern, plain, err):
+    b_ms, b_by = bound(rows, n, 2, extra_imad)
+    return {
+        "name": name, "route": "cuda", "source": KERNEL_SRC,
+        "replaces": replaces, "shape": [rows, n], "launches": None,
+        "max_abs_err": err,
+        "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes a modular NTT
+    }
+
+
+def check_standalone_transforms(device):
+    """The standalone transform pair at the _NTT/_INTT path's shapes: the wide
+    kernels at (32, 32768) under a 61-bit prime against their plain versions
+    (canonical and any-u64 input) with their `kernels` entries, and the times
+    of the row kernels at the path's (256, 16384)."""
+    rng = np.random.default_rng(6)
+    entries, at_path_shape = [], []
+    for n, bits, _, rows in NTT_CELLS:
+        q = int(nt.generate_primes(1, bits, n)[0])
+        tabs = ntt_cuda.modulus_tables(n, q, device=device)
+        wide = ntt_cuda.route(n) == "wide"
+        fwd_name, inv_name = ("ntt_fwd_wide", "ntt_inv_wide") if wide else ("ntt_fwd", "ntt_inv")
+        err = {fwd_name: 0, inv_name: 0}
+        for x in (
+            w.from_u64_np(rng.integers(0, q, size=(rows, n), dtype=np.uint64), device),
+            rand_u64(rng, (3, n), 64, device),
+        ):
+            before = dict(ntt_cuda.LAUNCHES)
+            err[fwd_name] = max(err[fwd_name], assert_same(
+                fwd_name, ntt_cuda.ntt_fwd(x, tabs), ntt_cuda.ntt_fwd_plain(x, tabs)))
+            err[inv_name] = max(err[inv_name], assert_same(
+                inv_name, ntt_cuda.ntt_inv(x, tabs), ntt_cuda.ntt_inv_plain(x, tabs)))
+            # n chose the kernel: nothing else was launched
+            for k, v in ntt_cuda.LAUNCHES.items():
+                assert v - before[k] == (k in err), (k, n)
+        ins = rotating(
+            lambda: w.from_u64_np(
+                rng.integers(0, q, size=(rows, n), dtype=np.uint64), device),
+            rows * n * 8)
+        made = [
+            transform_entry(
+                fwd_name, "hexl_fpga_tpu/ops/ntt_pallas.py:179", rows, n,
+                IMAD_BARRETT, lambda: ntt_cuda.ntt_fwd(ins(), tabs),
+                lambda: ntt_cuda.ntt_fwd_plain(ins(), tabs), err[fwd_name]),
+            transform_entry(
+                inv_name, "hexl_fpga_tpu/ops/ntt_pallas.py:200", rows, n,
+                IMAD_BARRETT + IMAD_LAZY_MUL // 2,
+                lambda: ntt_cuda.ntt_inv(ins(), tabs),
+                lambda: ntt_cuda.ntt_inv_plain(ins(), tabs), err[inv_name]),
+        ]
+        (entries if wide else at_path_shape).extend(made)
+    return entries, at_path_shape
 
 
 # ---------------------------------------------------------------------------
@@ -251,10 +423,7 @@ def drive_api(vec, ops):
 
 def main_path(vec, device, rehearse):
     n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
-    os.environ["BATCH_SIZE_KEYSWITCH"] = str(BATCH)
-    os.environ["RUN_CHOICE"] = "1" if rehearse else "2"
-    config_mod.reset_config()
-    hexl.acquire_FPGA_resources()
+    start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
 
     ops = make_ops(vec, WORKSIZE, seed=7)
     t0 = time.perf_counter()
@@ -272,7 +441,8 @@ def main_path(vec, device, rehearse):
     first, _ = drive_api(vec, ops)
     ntt_cuda.reset_launch_counts()
     results, wall_s = drive_api(vec, ops)
-    launches = dict(ntt_cuda.LAUNCHES)
+    launches = {k: ntt_cuda.LAUNCHES[k] for k in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail")}
+    assert sum(ntt_cuda.LAUNCHES.values()) == sum(launches.values())
     hexl.release_FPGA_resources()
 
     for i, exp in enumerate(want):
@@ -312,6 +482,184 @@ def main_path(vec, device, rehearse):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the DyadicMultiply path
+# ---------------------------------------------------------------------------
+
+
+def start_runtime(rehearse, **batch_env):
+    for k, v in batch_env.items():
+        os.environ[k] = str(v)
+    os.environ["RUN_CHOICE"] = "1" if rehearse else "2"
+    config_mod.reset_config()
+    hexl.acquire_FPGA_resources()
+
+
+def harvey_mul_mod(x, y, q):
+    """(x * y) mod q for canonical u64 arrays, vectorised: Harvey's product
+    with a per-element precon, not the kernel's Barrett."""
+    r = golden.mul_mod_lazy64(x, y, w.precon64_np(y, q), q)
+    return np.where(r >= np.uint64(q), r - np.uint64(q), r)
+
+
+def dyadic_oracle(op1, op2, moduli):
+    """(ops, 2, M, n) canonical operands -> (ops, 3, M, n), by harvey_mul_mod."""
+    out = np.empty((op1.shape[0], 3) + op1.shape[2:], dtype=np.uint64)
+    for m, q in enumerate(moduli):
+        x0, x1, y0, y1 = op1[:, 0, m], op1[:, 1, m], op2[:, 0, m], op2[:, 1, m]
+        out[:, 0, m] = harvey_mul_mod(x0, y0, q)
+        s = harvey_mul_mod(x0, y1, q) + harvey_mul_mod(x1, y0, q)
+        out[:, 1, m] = np.where(s >= np.uint64(q), s - np.uint64(q), s)
+        out[:, 2, m] = harvey_mul_mod(x1, y1, q)
+    return out
+
+
+def drive_dyadic(op1, op2, n, moduli):
+    M = len(moduli)
+    results = [np.zeros(3 * M * n, dtype=np.uint64) for _ in range(len(op1))]
+    t0 = time.perf_counter()
+    hexl.set_worksize_DyadicMultiply(len(op1))
+    for res, a, b in zip(results, op1, op2):
+        hexl.DyadicMultiply(res, a.reshape(-1), b.reshape(-1), n, moduli, M)
+    assert hexl.DyadicMultiplyCompleted()
+    return results, time.perf_counter() - t0
+
+
+def dyadic_path(device, rehearse):
+    n = 1024 if rehearse else DYADIC_N
+    M = DYADIC_MODULI
+    moduli = [int(q) for q in nt.generate_primes(M, DYADIC_BITS, n)]
+    rng = np.random.default_rng(21)
+    qcol = np.array(moduli, dtype=np.uint64).reshape(1, 1, M, 1)
+    op1 = rng.integers(0, 1 << 63, size=(WORKSIZE, 2, M, n), dtype=np.uint64) % qcol
+    op2 = rng.integers(0, 1 << 63, size=(WORKSIZE, 2, M, n), dtype=np.uint64) % qcol
+
+    t0 = time.perf_counter()
+    want = dyadic_oracle(op1, op2, moduli)
+    for i in range(DYADIC_BIGNUM_OPS):
+        np.testing.assert_array_equal(
+            want[i].reshape(-1), golden.dyadic_multiply(op1[i], op2[i], n, moduli, M),
+            err_msg=f"oracles disagree, op {i}")
+    oracle_s = time.perf_counter() - t0
+
+    start_runtime(rehearse, BATCH_SIZE_DYADIC_MULTIPLY=BATCH)
+    first, _ = drive_dyadic(op1, op2, n, moduli)  # uploads the constants
+    dyadic_cuda.reset_launch_counts()
+    results, wall_s = drive_dyadic(op1, op2, n, moduli)
+    launches = dict(dyadic_cuda.LAUNCHES)
+    hexl.release_FPGA_resources()
+
+    for i in range(WORKSIZE):
+        np.testing.assert_array_equal(first[i], want[i].reshape(-1),
+                                      err_msg=f"first pass, op {i}")
+        np.testing.assert_array_equal(results[i], want[i].reshape(-1),
+                                      err_msg=f"op {i}")
+    assert launches == {"dyadic_mul": 0 if rehearse else WORKSIZE // BATCH}, launches
+
+    out = {
+        "n": n, "moduli": M, "modulus_bits": DYADIC_BITS, "ops": WORKSIZE,
+        "batch": BATCH, "ops_checked_vs_harvey_oracle": WORKSIZE,
+        "ops_checked_vs_bignum_golden": DYADIC_BIGNUM_OPS,
+        "oracle_s": oracle_s, "launches": launches,
+    }
+    if not rehearse:
+        out["api_ops_per_s"] = WORKSIZE / wall_s
+        runner = dyadic_cuda.runner(moduli, device)
+        x = w.from_u64_np(op1[:BATCH], device)
+        y = w.from_u64_np(op2[:BATCH], device)
+        body_ms = time_ms(lambda: runner.run(x, y), 10)
+        out["body_ms_per_batch"] = body_ms
+        out["body_ops_per_s"] = BATCH / body_ms * 1e3
+        out["device_bytes_operands_in_per_batch"] = (x.numel() + y.numel()) * 8
+        out["device_bytes_results_out_per_batch"] = BATCH * 3 * M * n * 8
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the _NTT / _INTT path
+# ---------------------------------------------------------------------------
+
+
+def drive_transform(ops, call, set_worksize, completed):
+    """Transform copies of `ops` in place through the deprecated API section;
+    returns them and the wall seconds."""
+    bufs = [o.copy() for o in ops]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        t0 = time.perf_counter()
+        set_worksize(len(bufs))
+        for b in bufs:
+            call(b)
+        assert completed()
+    return bufs, time.perf_counter() - t0
+
+
+def ntt_cell(device, rehearse, n, bits, count, batch):
+    """`count` _NTT ops, then `count` _INTT ops on their results, at (n, one
+    prime of `bits` bits) with the caller's tables, in batches of `batch`."""
+    q = int(nt.generate_primes(1, bits, n)[0])
+    t = twiddles.ntt_tables(n, q)
+    rng = np.random.default_rng(n)
+    src = rng.integers(0, q, size=(count, n), dtype=np.uint64)
+    t0 = time.perf_counter()
+    want_fwd = golden.fwd_ntt(src, q, t)
+    want_inv = golden.inv_ntt(want_fwd, q, t)
+    np.testing.assert_array_equal(want_inv, src)
+    golden_s = time.perf_counter() - t0
+
+    start_runtime(rehearse, BATCH_SIZE_NTT=batch, BATCH_SIZE_INTT=batch)
+    fwd = lambda b: hexl._NTT(b, t.fwd, t.fwd_precon, q, n)
+    inv = lambda b: hexl._INTT(b, t.inv, t.inv_precon, q, t.inv_n, t.inv_n_w, n)
+    # a first pass uploads the caller's tables; the second is the counted one
+    drive_transform(src[:batch], fwd, hexl._set_worksize_NTT, hexl._NTTCompleted)
+    drive_transform(src[:batch], inv, hexl._set_worksize_INTT, hexl._INTTCompleted)
+    ntt_cuda.reset_launch_counts()
+    got_fwd, fwd_s = drive_transform(
+        src, fwd, hexl._set_worksize_NTT, hexl._NTTCompleted)
+    got_inv, inv_s = drive_transform(
+        got_fwd, inv, hexl._set_worksize_INTT, hexl._INTTCompleted)
+    launches = {k: v for k, v in ntt_cuda.LAUNCHES.items() if v}
+    hexl.release_FPGA_resources()
+
+    np.testing.assert_array_equal(np.stack(got_fwd), want_fwd)
+    np.testing.assert_array_equal(np.stack(got_inv), src)  # the round trip
+    wide = ntt_cuda.route(n) == "wide"
+    names = ("ntt_fwd_wide", "ntt_inv_wide") if wide else ("ntt_fwd", "ntt_inv")
+    expected = {} if rehearse else dict.fromkeys(names, count // batch)
+    assert launches == expected, (launches, expected)
+
+    out = {
+        "n": n, "modulus_bits": bits, "ops_each_way": count, "batch": batch,
+        "ops_checked_vs_golden": 2 * count, "golden_s": golden_s,
+        "launches": launches,
+    }
+    if not rehearse:
+        out["ntt_api_ops_per_s"] = count / fwd_s
+        out["intt_api_ops_per_s"] = count / inv_s
+        ft = ntt_cuda.caller_fwd_tables(n, q, t.fwd, t.fwd_precon, device=device)
+        it = ntt_cuda.caller_inv_tables(n, q, t.inv, t.inv_precon, t.inv_n,
+                                        t.inv_n_w, device=device)
+        x = w.from_u64_np(src[:batch], device)
+        out["fwd_body_ms_per_batch"] = time_ms(lambda: ntt_cuda.ntt_fwd(x, ft), 10)
+        out["inv_body_ms_per_batch"] = time_ms(lambda: ntt_cuda.ntt_inv(x, it), 10)
+        out["device_bytes_operands_in_per_batch"] = x.numel() * 8
+        out["device_bytes_results_out_per_batch"] = x.numel() * 8
+        out["device_bytes_tables"] = ft.tab.numel() * 8
+    return out
+
+
+def ntt_path(device, rehearse):
+    cells = []
+    for n, bits, count, batch in NTT_CELLS:
+        if rehearse:  # the same two routes, little work
+            n, count, batch = (1024, 64, 16) if n <= 16384 else (n, 4, 2)
+        cells.append(ntt_cell(device, rehearse, n, bits, count, batch))
+    launches = {}
+    for c in cells:
+        launches.update(c["launches"])
+    return {"cells": cells, "launches": launches}
+
+
 def main(rehearse: bool = False) -> int:
     if rehearse:
         device = torch.device("cpu")
@@ -326,17 +674,32 @@ def main(rehearse: bool = False) -> int:
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
         t0 = time.perf_counter()
-        ntt_cuda.build_kernels()
+        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
+            for built in [pool.submit(ntt_cuda.build_kernels),
+                          pool.submit(dyadic_cuda.build_kernels)]:
+                built.result()
         emit({"device": smi, "kernel_build_s": time.perf_counter() - t0,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         vec = vectors.load_json(VECTOR)
 
-    kernels = [] if rehearse else check_kernels(vec, device)
-    path = main_path(vec, device, rehearse)
-    for k in kernels:
-        k["launches"] = path["launches"][k["name"]]
+    kernels, at_path_shape = [], []
+    if not rehearse:
+        kernels = check_kernels(vec, device)
+        kernels.append(check_dyadic_kernel(device))
+        wide, at_path_shape = check_standalone_transforms(device)
+        kernels += wide
+    paths = {
+        "main_path": main_path(vec, device, rehearse),
+        "dyadic_path": dyadic_path(device, rehearse),
+        "ntt_path": ntt_path(device, rehearse),
+    }
+    if at_path_shape:
+        paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
+    for k in kernels:  # launches summed over the paths' counted passes
+        k["launches"] = sum(p["launches"].get(k["name"], 0) for p in paths.values())
         assert k["launches"] > 0, k["name"]
-    emit({"main_path": path})
+    for name, path in paths.items():
+        emit({name: path})
     emit({"kernels": kernels})
     if rehearse:
         emit({"ok": True, "device": {"platform": "cpu", "kind": "rehearsal", "count": 0}})

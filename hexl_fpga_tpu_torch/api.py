@@ -1,14 +1,15 @@
-"""Public API: the KeySwitch section of `host/inc/hexl-fpga.h`, in Python.
+"""Public API: the 14 functions of `host/inc/hexl-fpga.h`, in Python.
 
 Same names, same signatures (numpy arrays in place of raw pointers), same
 async worksize/Completed protocol, same validation
-(`host/src/keyswitch.cpp` FPGA_ASSERT wrappers) as `hexl_fpga_tpu/api.py`.
-DyadicMultiply and the deprecated NTT/INTT section are not ported yet and
-raise.
+(`host/src/{keyswitch,ntt,intt,dyadic_multiply}.cpp` FPGA_ASSERT wrappers) as
+`hexl_fpga_tpu/api.py`.  KeySwitch's `plain_modulus` extension is not ported
+yet and raises.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,6 +30,47 @@ def release_FPGA_resources() -> None:
 
 acquire_GPU_resources = acquire_FPGA_resources
 release_GPU_resources = release_FPGA_resources
+
+
+# -- DyadicMultiply section (`hexl-fpga.h:23-50`) ----------------------------
+
+
+def set_worksize_DyadicMultiply(ws: int) -> None:
+    hexl_assert(ws > 0, "worksize must be positive")
+    sched.pool().set_worksize(sched.DYADIC_MULTIPLY, int(ws))
+
+
+def DyadicMultiply(
+    results: np.ndarray,
+    operand1: np.ndarray,
+    operand2: np.ndarray,
+    n: int,
+    moduli: Sequence[int],
+    n_moduli: int,
+) -> None:
+    hexl_assert(results is not None, "requires results != nullptr")
+    hexl_assert(operand1 is not None, "requires operand1 != nullptr")
+    hexl_assert(operand2 is not None, "requires operand2 != nullptr")
+    hexl_assert(n_moduli > 0, "requires n_moduli > 0")
+    hexl_assert(n > 0, "requires n > 0")
+    moduli = np.asarray(moduli, dtype=np.uint64)[:n_moduli].copy()
+    fence_key = (int(n), int(n_moduli), moduli.tobytes())
+    sched.pool().enqueue(
+        sched.DYADIC_MULTIPLY,
+        fence_key,
+        {
+            "results": results,
+            "operand1": operand1,
+            "operand2": operand2,
+            "n": int(n),
+            "moduli": moduli,
+            "n_moduli": int(n_moduli),
+        },
+    )
+
+
+def DyadicMultiplyCompleted() -> bool:
+    return sched.pool().completed(sched.DYADIC_MULTIPLY)
 
 
 # -- KeySwitch section (`hexl-fpga.h:52-86`) ---------------------------------
@@ -129,17 +171,94 @@ def KeySwitchCompleted() -> bool:
     return sched.pool().completed(sched.KEYSWITCH)
 
 
-# -- not ported yet ----------------------------------------------------------
+# -- Deprecated NTT/INTT section (`hexl-fpga.h:88-161`) ----------------------
 
 
-def _not_ported(name: str):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{name}: not ported yet")
+def _deprecated(name: str) -> None:
+    warnings.warn(
+        f"{name} is deprecated since version 1.1 of the reference API",
+        DeprecationWarning,
+        stacklevel=3,
+    )
 
-    fn.__name__ = name
-    return fn
+
+def _set_worksize_NTT(ws: int) -> None:
+    _deprecated("_set_worksize_NTT")
+    hexl_assert(ws > 0, "worksize must be positive")
+    sched.pool().set_worksize(sched.NTT, int(ws))
 
 
-DyadicMultiply = _not_ported("DyadicMultiply")
-_NTT = _not_ported("_NTT")
-_INTT = _not_ported("_INTT")
+def _NTT(
+    operand: np.ndarray,
+    root_of_unity_powers: np.ndarray,
+    precon_root_of_unity_powers: np.ndarray,
+    coeff_modulus: int,
+    n: int,
+) -> None:
+    _deprecated("_NTT")
+    # `host/src/ntt.cpp:25`: the shipped kernel only supports n == 16384, but
+    # like the emulation build we accept any supported power of two.
+    hexl_assert(
+        n in (1024, 2048, 4096, 8192, 16384, 32768),
+        "requires supported power-of-two n",
+    )
+    hexl_assert(operand is not None and len(operand) == n, "operand size mismatch")
+    fence_key = (int(n), int(coeff_modulus))
+    sched.pool().enqueue(
+        sched.NTT,
+        fence_key,
+        {
+            "operand": operand,
+            "root_of_unity_powers": np.asarray(root_of_unity_powers, dtype=np.uint64),
+            "precon": np.asarray(precon_root_of_unity_powers, dtype=np.uint64),
+            "coeff_modulus": int(coeff_modulus),
+            "n": int(n),
+        },
+    )
+
+
+def _NTTCompleted() -> bool:
+    return sched.pool().completed(sched.NTT)
+
+
+def _set_worksize_INTT(ws: int) -> None:
+    _deprecated("_set_worksize_INTT")
+    hexl_assert(ws > 0, "worksize must be positive")
+    sched.pool().set_worksize(sched.INTT, int(ws))
+
+
+def _INTT(
+    operand: np.ndarray,
+    inv_root_of_unity_powers: np.ndarray,
+    precon_inv_root_of_unity_powers: np.ndarray,
+    coeff_modulus: int,
+    inv_n: int,
+    inv_n_w: int,
+    n: int,
+) -> None:
+    _deprecated("_INTT")
+    hexl_assert(
+        n in (1024, 2048, 4096, 8192, 16384, 32768),
+        "requires supported power-of-two n",
+    )
+    hexl_assert(operand is not None and len(operand) == n, "operand size mismatch")
+    fence_key = (int(n), int(coeff_modulus))
+    sched.pool().enqueue(
+        sched.INTT,
+        fence_key,
+        {
+            "operand": operand,
+            "inv_root_of_unity_powers": np.asarray(
+                inv_root_of_unity_powers, dtype=np.uint64
+            ),
+            "precon": np.asarray(precon_inv_root_of_unity_powers, dtype=np.uint64),
+            "coeff_modulus": int(coeff_modulus),
+            "inv_n": int(inv_n),
+            "inv_n_w": int(inv_n_w),
+            "n": int(n),
+        },
+    )
+
+
+def _INTTCompleted() -> bool:
+    return sched.pool().completed(sched.INTT)

@@ -2,9 +2,11 @@
 
 `hexl_fpga_tpu` carries every u64 as a (lo, hi) pair of uint32 planes and
 stages keyswitch operands as `(klo, khi, plo, phi)` key/precon planes and a
-`(K, 4)` uint32 `msf4` table; this package carries one int64 bit pattern per
-value.  These converters let a test feed both packages' `_build` bodies the
-same staged operands.  Inputs are anything `np.asarray` accepts (numpy or
+`(K, 4)` uint32 `msf4` table, and moves DyadicMultiply and NTT batches as
+interleaved uint32 `[lo_j, hi_j]` arrays of twice the width; this package
+carries one int64 bit pattern per value.  These converters let a test feed
+both packages the same staged operands and hold one's outputs against the
+other's.  Inputs are anything `np.asarray` accepts (numpy or
 device arrays of the other package); nothing of that package is imported.
 """
 
@@ -24,6 +26,13 @@ def pair_to_i64(lo, hi, device="cpu") -> torch.Tensor:
 def i64_to_pair(x: torch.Tensor):
     """int64 tensor -> (lo, hi) uint32 numpy planes."""
     return w.to_pair_np(w.to_u64_np(x))
+
+
+def interleaved_to_i64(x32, device="cpu") -> torch.Tensor:
+    """(..., 2n) interleaved uint32 `[lo_j, hi_j]` (little-endian u64 bytes) ->
+    (..., n) int64 tensor of the joined bit patterns."""
+    x32 = np.ascontiguousarray(np.asarray(x32, dtype=np.uint32))
+    return w.from_u64_np(x32.view(np.uint64), device)
 
 
 def staged_keys_from_pairs(klo, khi, plo, phi, device="cpu"):

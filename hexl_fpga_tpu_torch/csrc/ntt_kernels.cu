@@ -3,19 +3,32 @@
 //   hexl_ntt_fwd       batched forward NTT, any u64 in -> canonical, bit-reversed out
 //   hexl_ntt_inv       batched inverse NTT, bit-reversed in -> canonical, natural out
 //   hexl_ntt_fwd_tail  keyswitch tail: +fix, forward NTT, modswitch, accumulate
+//   hexl_ntt_fwd_wide  hexl_ntt_fwd for a row of twice a block's shared memory
+//   hexl_ntt_inv_wide  hexl_ntt_inv for such a row
 //
-// They replace the fused MXU kernels of hexl_fpga_tpu/ops/ntt_mxu_pallas.py
-// (_fwd_kernel, _inv_kernel, the raw_fwd_tail_call kernel).  Those compute the
-// transform as two int8-limb matrix products because their target has no
-// 64-bit integers; this card has them (__umul64hi), so the transform here is
-// the Harvey butterfly network itself.
+// The first three replace the fused MXU kernels of
+// hexl_fpga_tpu/ops/ntt_mxu_pallas.py (_fwd_kernel, _inv_kernel, the
+// raw_fwd_tail_call kernel).  Those compute the transform as two int8-limb
+// matrix products because their target has no 64-bit integers; this card has
+// them (__umul64hi), so the transform here is the Harvey butterfly network
+// itself.  With the wide pair they are also the counterpart of the batched
+// butterfly kernels of hexl_fpga_tpu/ops/ntt_pallas.py (_fwd_kernel,
+// _inv_kernel: canonical in, canonical out, a tile resident for all stages),
+// which keep a (tile, n) block in a fast memory of many megabytes; a block
+// here has 227 KB, so a row of n = 32768 (256 KB) is split in two halves.
 //
 // Layout: rows of n contiguous u64 (passed as int64 bit patterns).  `tab` is
 // a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.  One block
 // per row; the row lives in n*8 bytes of dynamic shared memory (128 KB at
-// n = 16384, opted in with cudaFuncSetAttribute).  Each entry launches on the
-// given stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() (0 = launched).
+// n = 16384, opted in with cudaFuncSetAttribute).  The wide entries run two
+// blocks per row, each with one half in shared memory: forward, a block does
+// the one stage that crosses the halves while it loads (it reads both halves
+// from device memory and keeps its own), then its half's log2(n) - 1 stages;
+// inverse, the halves' stages run first and go to `out`, and a second
+// elementwise kernel of the same entry does the crossing last stage, fused
+// with n^-1, in place.  Each entry launches on the given stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError() (0 =
+// launched).
 //
 // Bound: per coefficient the kernels move 16..32 bytes and do log2(n)/2
 // butterflies of three 64-bit multiplies (about ten 32-bit multiply-adds); by
@@ -36,7 +49,7 @@ ntt_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out,
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = barrett_canonical(in[base + i], q, q_barr);
   __syncthreads();
-  fwd_stages(s, tab, tab + n, n, q);
+  fwd_stages(s, tab, tab + n, n, q, 1, 0);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     out[base + i] = reduce4(s[i], q);
 }
@@ -50,7 +63,7 @@ ntt_inv_kernel(const u64* __restrict__ in, u64* __restrict__ out,
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = barrett_canonical(in[base + i], q, q_barr);
   __syncthreads();
-  inv_stages(s, tab + 2 * n, tab + 3 * n, n, q);
+  inv_stages(s, tab + 2 * n, tab + 3 * n, n, q, 1, 0);
   // last stage fused with the n^-1 scaling: the X half times n^-1, the Y
   // half times n^-1 * W_last
   const u64 twice_q = 2 * q;
@@ -78,7 +91,7 @@ ntt_fwd_tail_kernel(const u64* __restrict__ e, const u64* __restrict__ acc,
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     s[i] = barrett_canonical(e[base + i] + fix, q, q_barr);
   __syncthreads();
-  fwd_stages(s, tab, tab + n, n, q);
+  fwd_stages(s, tab, tab + n, n, q, 1, 0);
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const u64 g = reduce4(s[i], q);
     const u64 a = barrett_canonical(acc[base + i], q, q_barr);
@@ -86,6 +99,65 @@ ntt_fwd_tail_kernel(const u64* __restrict__ e, const u64* __restrict__ acc,
     t1 = cond_sub(cond_sub(cond_sub(t1, 4 * q), 2 * q), q);
     const u64 delta = cond_sub(mul_lazy(t1, msf, msf_p, q), q);
     out[base + i] = cond_sub(res[base + i] + delta, q);
+  }
+}
+
+// Forward NTT of a row held as two halves, one block each (blockIdx.x =
+// 2 * row + half).  Stage m = 1 pairs i with i + n/2 under the single twiddle
+// tab[1]; each block computes it for its own half while loading.
+__global__ void __launch_bounds__(1024)
+ntt_fwd_wide_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+                    const u64* __restrict__ tab, int n, u64 q, u64 q_barr) {
+  u64* s = smem_row;
+  const int len = n >> 1;
+  const int part = blockIdx.x & 1;
+  const size_t base = (size_t)(blockIdx.x >> 1) * n;
+  const u64 twice_q = 2 * q;
+  const u64 W = tab[1], Wp = tab[n + 1];
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const u64 tx = cond_sub(barrett_canonical(in[base + i], q, q_barr), twice_q);
+    const u64 T =
+        mul_lazy(barrett_canonical(in[base + i + len], q, q_barr), W, Wp, q);
+    s[i] = part == 0 ? tx + T : tx + twice_q - T;
+  }
+  __syncthreads();
+  fwd_stages(s, tab, tab + n, len, q, 2, part);
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    out[base + (size_t)part * len + i] = reduce4(s[i], q);
+}
+
+// Inverse NTT of a row held as two halves, first kernel: every stage that
+// stays inside a half (m = n/2 .. 2); values in [0, 2q) go to `out`.
+__global__ void __launch_bounds__(1024)
+ntt_inv_wide_halves_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+                           const u64* __restrict__ tab, int n, u64 q,
+                           u64 q_barr) {
+  u64* s = smem_row;
+  const int len = n >> 1;
+  const int part = blockIdx.x & 1;
+  const size_t base = (size_t)(blockIdx.x >> 1) * n + (size_t)part * len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    s[i] = barrett_canonical(in[base + i], q, q_barr);
+  __syncthreads();
+  inv_stages(s, tab + 2 * n, tab + 3 * n, len, q, 2, part);
+  for (int i = threadIdx.x; i < len; i += blockDim.x) out[base + i] = s[i];
+}
+
+// Second kernel: the last stage (m = 1) across the halves, fused with the
+// n^-1 scaling, in place on `out`; one thread owns both elements it rewrites.
+__global__ void __launch_bounds__(256)
+ntt_inv_wide_last_kernel(u64* __restrict__ out, int n, size_t pairs, u64 q,
+                         u64 inv_n, u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p) {
+  const u64 twice_q = 2 * q;
+  const int half = n >> 1;
+  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < pairs;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const size_t at = (e / half) * n + (e % half);
+    const u64 X = out[at], Y = out[at + half];
+    const u64 tx = cond_sub(X + Y, twice_q);
+    const u64 ty = X + twice_q - Y;
+    out[at] = cond_sub(mul_lazy(tx, inv_n, inv_n_p, q), q);
+    out[at + half] = cond_sub(mul_lazy(ty, inv_n_w, inv_n_w_p, q), q);
   }
 }
 
@@ -130,5 +202,36 @@ extern "C" int hexl_ntt_fwd_tail(const void* e, const void* acc,
                         (cudaStream_t)stream>>>(
       (const u64*)e, (const u64*)acc, (const u64*)res, (u64*)out,
       (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hexl_ntt_fwd_wide(const void* in, void* out, const void* tab,
+                                 int rows, int n, u64 q, u64 q_barr,
+                                 void* stream) {
+  const int len = n / 2;
+  cudaError_t err = opt_in_smem(ntt_fwd_wide_kernel, len);
+  if (err != cudaSuccess) return (int)err;
+  ntt_fwd_wide_kernel<<<2 * rows, threads_for(len), len * sizeof(u64),
+                        (cudaStream_t)stream>>>(
+      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hexl_ntt_inv_wide(const void* in, void* out, const void* tab,
+                                 int rows, int n, u64 q, u64 q_barr, u64 inv_n,
+                                 u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p,
+                                 void* stream) {
+  const int len = n / 2;
+  cudaError_t err = opt_in_smem(ntt_inv_wide_halves_kernel, len);
+  if (err != cudaSuccess) return (int)err;
+  ntt_inv_wide_halves_kernel<<<2 * rows, threads_for(len), len * sizeof(u64),
+                               (cudaStream_t)stream>>>(
+      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const size_t pairs = (size_t)rows * len;
+  ntt_inv_wide_last_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0,
+                             (cudaStream_t)stream>>>(
+      (u64*)out, n, pairs, q, inv_n, inv_n_p, inv_n_w, inv_n_w_p);
   return (int)cudaGetLastError();
 }

@@ -23,8 +23,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards the two dicts, never held during a build
 _libs: dict = {}
+_source_locks: dict = {}
 
 
 def find_nvcc() -> str:
@@ -67,8 +68,11 @@ def build(source: str, deps=()) -> str:
 
 
 def load(source: str, deps=()) -> ctypes.CDLL:
-    """The built library for csrc/<source>, loaded once per process."""
+    """The built library for csrc/<source>, loaded once per process.  Builds
+    of different sources may run side by side (one lock per source)."""
     with _lock:
+        source_lock = _source_locks.setdefault(source, threading.Lock())
+    with source_lock:
         lib = _libs.get(source)
         if lib is None:
             lib = _libs[source] = ctypes.CDLL(build(source, deps))

@@ -204,6 +204,30 @@ def inv_ntt(
 
 
 # ---------------------------------------------------------------------------
+# Dyadic multiply golden model
+# ---------------------------------------------------------------------------
+
+
+def dyadic_multiply(op1, op2, n: int, moduli, n_moduli: int) -> np.ndarray:
+    """Ciphertext x ciphertext dyadic product (2x2 -> 3 polys per modulus).
+
+    Layouts follow the public API (`host/inc/hexl-fpga.h:41-43`, oracle at
+    `tests/test_dyadic_multiply.cpp:32-109`):
+      op:  [2][n_moduli][n]  (poly0 for all moduli, then poly1)
+      out: [3][n_moduli][n]  (x0*y0, x0*y1 + x1*y0, x1*y1), each mod moduli[m].
+    Moduli are arbitrary word-sized integers (not necessarily prime), so the
+    golden path uses bignum object arrays."""
+    op1 = _u64(op1).reshape(2, n_moduli, n).astype(object)
+    op2 = _u64(op2).reshape(2, n_moduli, n).astype(object)
+    q = np.asarray(list(map(int, moduli)), dtype=object)[:n_moduli].reshape(n_moduli, 1)
+    out = np.empty((3, n_moduli, n), dtype=object)
+    out[0] = (op1[0] * op2[0]) % q
+    out[1] = (op1[0] * op2[1] + op1[1] * op2[0]) % q
+    out[2] = (op1[1] * op2[1]) % q
+    return out.astype(np.uint64).reshape(-1)
+
+
+# ---------------------------------------------------------------------------
 # KeySwitch golden model
 # ---------------------------------------------------------------------------
 

@@ -1,7 +1,7 @@
 """Batched negacyclic NTT / INTT / keyswitch-tail on the card.
 
 Three wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
-each with its plain PyTorch version and a launch counter beside it:
+each with its plain PyTorch version and launch counters beside it:
 
   ntt_fwd       replaces `hexl_fpga_tpu/ops/ntt_mxu_pallas.py` `_fwd_kernel`
                 (entries raw_fwd_call / fwd_ntt_fn): natural in -> bit-reversed
@@ -12,6 +12,19 @@ each with its plain PyTorch version and a launch counter beside it:
   ntt_fwd_tail  replaces the `raw_fwd_tail_call` kernel: `f = e + fix`,
                 forward NTT, then per element
                 `out = cond_sub(res + ReduceMod8(acc + 4q - g) * msf, q)`.
+
+`ntt_fwd` and `ntt_inv` are also the counterpart of the batched butterfly
+kernels of `hexl_fpga_tpu/ops/ntt_pallas.py` (`_fwd_kernel`, `_inv_kernel`:
+canonical in, canonical out, all stages on chip), the standalone transform
+behind `api._NTT` / `api._INTT`.  They choose their kernel by n (`route`): up
+to n = 16384 a row fits one block's shared memory (kernels `ntt_fwd`,
+`ntt_inv`); at n = 32768 it does not, and the kernels `ntt_fwd_wide` /
+`ntt_inv_wide` split the row in two halves, one block each, with the one stage
+that crosses the halves done from device memory.  The plain versions split
+the same way, so the split's index arithmetic is tested on the CPU.  Tables
+come from `modulus_tables` (built from a 2n-th root) or from
+`caller_fwd_tables` / `caller_inv_tables` (a caller's own arrays, used as
+given).
 
 What bounds them on an H100: by the count, bytes and multiplies are within a
 factor of two of each other.  A coefficient moves 16 bytes (32 in the tail)
@@ -47,7 +60,8 @@ from . import _build, nt, twiddles, word64 as w
 
 # launches per kernel since the last reset; a wrapper adds one exactly where
 # it launches its kernel
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0}
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0,
+            "ntt_fwd_wide": 0, "ntt_inv_wide": 0}
 _launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
 
 KERNEL_SOURCE = "ntt_kernels.cu"
@@ -65,6 +79,26 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
+# one block's dynamic shared memory on sm_90, in u64 values
+_SMEM_VALUES = 232448 // 8
+
+
+def route(n: int) -> str:
+    """Which kernels serve a row of n values on the card: "row" (the row in
+    one block's shared memory) or "wide" (two halves, one block each).  Raises
+    for an n that no kernel serves."""
+    if not (nt.is_power_of_two(n) and n >= 4):
+        raise ValueError(f"n must be a power of two >= 4, got {n}")
+    if n <= _SMEM_VALUES:
+        return "row"
+    if n // 2 <= _SMEM_VALUES:
+        return "wide"
+    raise ValueError(
+        f"no NTT kernel serves n = {n}: a row must fit one block's shared "
+        f"memory whole (n <= 16384) or in two halves (n = 32768)"
+    )
+
+
 @dataclass(frozen=True, eq=False)
 class ModulusTables:
     """Everything one (n, q, psi) transform needs, on one device."""
@@ -73,18 +107,24 @@ class ModulusTables:
     q: int
     q_barr: int  # floor(2^64 / q)
     tab: torch.Tensor  # (4, n) int64: fwd, fwd_precon, inv, inv_precon
-    inv_n: int
-    inv_n_precon: int
-    inv_n_w: int
-    inv_n_w_precon: int
+    inv_n: int = 0
+    inv_n_precon: int = 0
+    inv_n_w: int = 0
+    inv_n_w_precon: int = 0
+    # a caller's tables hold one direction only; the other rows are zero
+    has_fwd: bool = True
+    has_inv: bool = True
+
+
+def _check_n_q(n: int, q: int) -> None:
+    route(n)
+    if not 2 < q < (1 << 62):
+        raise ValueError("the butterflies need 4q < 2^64: q must be below 2^62")
 
 
 @functools.lru_cache(maxsize=64)
 def _modulus_tables(n: int, q: int, psi, device: str) -> ModulusTables:
-    if not (nt.is_power_of_two(n) and n >= 4):
-        raise ValueError(f"n must be a power of two >= 4, got {n}")
-    if not 2 < q < (1 << 62):
-        raise ValueError("the butterflies need 4q < 2^64: q must be below 2^62")
+    _check_n_q(n, q)
     t = twiddles.ntt_tables(n, q, psi)
     tab = np.stack([t.fwd, t.fwd_precon, t.inv, t.inv_precon])
     return ModulusTables(
@@ -103,6 +143,78 @@ def modulus_tables(n: int, q: int, psi: int | None = None,
                            str(torch.device(device)))
 
 
+# caller tables: (n, q, digest of the arrays, device) -> ModulusTables, so a
+# second batch under the same tables uploads nothing
+_caller_tables: dict = {}
+_caller_tables_lock = threading.Lock()
+_CALLER_TABLES_MAX = 64
+
+
+def _caller_tables_cached(key, make) -> ModulusTables:
+    with _caller_tables_lock:
+        tabs = _caller_tables.get(key)
+        if tabs is None:
+            if len(_caller_tables) >= _CALLER_TABLES_MAX:
+                _caller_tables.pop(next(iter(_caller_tables)))
+            tabs = _caller_tables[key] = make()
+        return tabs
+
+
+def _table_rows(n: int, *arrays):
+    rows = [np.ascontiguousarray(a, dtype=np.uint64).ravel() for a in arrays]
+    for r in rows:
+        if r.shape[0] != n:
+            raise ValueError(f"twiddle table of {r.shape[0]} values, expected {n}")
+    return rows
+
+
+def caller_fwd_tables(n: int, q: int, root_of_unity_powers, precon,
+                      device="cpu") -> ModulusTables:
+    """Forward-only tables from a caller's own arrays, used as given:
+    `root_of_unity_powers` in bit-reversed order and their precons
+    floor(w << 64 / q) (the `_NTT` arguments).  Cached by content."""
+    n, q, device = int(n), int(q), str(torch.device(device))
+    _check_n_q(n, q)
+    fwd, fp = _table_rows(n, root_of_unity_powers, precon)
+
+    def make():
+        zero = np.zeros(n, dtype=np.uint64)
+        return ModulusTables(
+            n=n, q=q, q_barr=nt.barrett_factor(1, 64, q),
+            tab=w.from_u64_np(np.stack([fwd, fp, zero, zero]), device),
+            has_inv=False,
+        )
+
+    key = ("fwd", n, q, hash((fwd.tobytes(), fp.tobytes())), device)
+    return _caller_tables_cached(key, make)
+
+
+def caller_inv_tables(n: int, q: int, inv_root_of_unity_powers, precon,
+                      inv_n: int, inv_n_w: int, device="cpu") -> ModulusTables:
+    """Inverse-only tables from a caller's own arrays, used as given: the
+    scan-order inverse root powers with the leading 1, their precons, n^-1
+    and n^-1 times the last twiddle (the `_INTT` arguments)."""
+    n, q, device = int(n), int(q), str(torch.device(device))
+    inv_n, inv_n_w = int(inv_n), int(inv_n_w)
+    _check_n_q(n, q)
+    if not (0 <= inv_n < q and 0 <= inv_n_w < q):
+        raise ValueError("inv_n and inv_n_w must be residues below q")
+    inv, ip = _table_rows(n, inv_root_of_unity_powers, precon)
+
+    def make():
+        zero = np.zeros(n, dtype=np.uint64)
+        return ModulusTables(
+            n=n, q=q, q_barr=nt.barrett_factor(1, 64, q),
+            tab=w.from_u64_np(np.stack([zero, zero, inv, ip]), device),
+            inv_n=inv_n, inv_n_precon=nt.barrett_factor(inv_n, 64, q),
+            inv_n_w=inv_n_w, inv_n_w_precon=nt.barrett_factor(inv_n_w, 64, q),
+            has_fwd=False,
+        )
+
+    key = ("inv", n, q, hash((inv.tobytes(), ip.tobytes(), inv_n, inv_n_w)), device)
+    return _caller_tables_cached(key, make)
+
+
 # ---------------------------------------------------------------------------
 # kernel binding
 # ---------------------------------------------------------------------------
@@ -115,7 +227,10 @@ def _lib():
     lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, p]
     lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
     lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, p]
-    for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail):
+    lib.hexl_ntt_fwd_wide.argtypes = lib.hexl_ntt_fwd.argtypes
+    lib.hexl_ntt_inv_wide.argtypes = lib.hexl_ntt_inv.argtypes
+    for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
+               lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide):
         fn.restype = ctypes.c_int
     return lib
 
@@ -125,7 +240,13 @@ def build_kernels() -> None:
     _lib()
 
 
-def _check(x: torch.Tensor, tabs: ModulusTables, name: str) -> None:
+def _check(x: torch.Tensor, tabs: ModulusTables, name: str,
+           forward: bool = True) -> None:
+    if not (tabs.has_fwd if forward else tabs.has_inv):
+        raise ValueError(
+            f"{name}: these tables hold no "
+            f"{'forward' if forward else 'inverse'} twiddles"
+        )
     if x.dtype != torch.int64:
         raise TypeError(f"{name}: expected int64 bit patterns, got {x.dtype}")
     if x.dim() != 2 or x.shape[1] != tabs.n or x.shape[0] < 1:
@@ -155,16 +276,23 @@ def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
-    """All forward stages on canonical rows (R, n); returns values in [0, 4q)."""
-    n, q = tabs.n, tabs.q
-    R = x.shape[0]
+def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
+                      part: int = 0) -> torch.Tensor:
+    """Forward stages on rows (R, len) of values < 4q; returns values in
+    [0, 4q).  With parts = 1 the rows are whole and these are all stages; with
+    parts > 1 they are piece `part` of rows of parts * len whose stages
+    m < parts are done, and stage ml here is stage parts * ml of the whole
+    row: its twiddles start at (parts + part) * ml (`csrc/ntt_kernels.cuh`,
+    fwd_stages)."""
+    q = tabs.q
+    R, n = x.shape
     fwd, fwd_p = tabs.tab[0], tabs.tab[1]
+    tw = parts + part
     t, m = n >> 1, 1
     while m < n:
         v = x.view(R, m, 2, t)
-        W = fwd[m : 2 * m].view(1, m, 1)
-        Wp = fwd_p[m : 2 * m].view(1, m, 1)
+        W = fwd[tw * m : tw * m + m].view(1, m, 1)
+        Wp = fwd_p[tw * m : tw * m + m].view(1, m, 1)
         tx = w.cond_sub64(v[:, :, 0, :], 2 * q)
         T = w.mul_mod_lazy(v[:, :, 1, :], W, Wp, q)
         x = torch.stack([tx + T, tx + 2 * q - T], dim=2).view(R, n)
@@ -173,15 +301,35 @@ def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
     return x
 
 
+def _fwd_split_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+    """The wide kernel's schedule on canonical rows (R, n): stage m = 1 across
+    the halves, then each half's stages on its own."""
+    q, h = tabs.q, tabs.n >> 1
+    W, Wp = tabs.tab[0, 1], tabs.tab[1, 1]
+    tx = w.cond_sub64(x[:, :h], 2 * q)
+    T = w.mul_mod_lazy(x[:, h:], W, Wp, q)
+    halves = ((tx + T).contiguous(), (tx + 2 * q - T).contiguous())
+    return torch.cat(
+        [_fwd_stages_plain(half, tabs, 2, part) for part, half in enumerate(halves)],
+        dim=1,
+    )
+
+
 def _reduce4(x, q: int):
     return w.cond_sub64(w.cond_sub64(x, 2 * q), q)
 
 
-def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
-    """Plain PyTorch version of ntt_fwd (any device)."""
+def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables,
+                  split: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd (any device).  `split` picks the wide
+    kernel's two-halves schedule; by default n decides, as in ntt_fwd.  Both
+    schedules give the same bits."""
     _check(x, tabs, "ntt_fwd_plain")
+    if split is None:
+        split = route(tabs.n) == "wide"
     x = w.barrett_canonical(x, tabs.q, tabs.q_barr)
-    return _reduce4(_fwd_stages_plain(x, tabs), tabs.q)
+    stages = _fwd_split_plain if split else _fwd_stages_plain
+    return _reduce4(stages(x, tabs), tabs.q)
 
 
 def ntt_fwd(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
@@ -190,9 +338,11 @@ def ntt_fwd(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
     _check(x, tabs, "ntt_fwd")
     if x.device.type == "cpu":
         return ntt_fwd_plain(x, tabs)
+    name = "ntt_fwd" if route(tabs.n) == "row" else "ntt_fwd_wide"
     out = torch.empty_like(x)
-    _launch("ntt_fwd", _lib().hexl_ntt_fwd, x, x.data_ptr(), out.data_ptr(),
-            tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr)
+    _launch(name, getattr(_lib(), f"hexl_{name}"), x, x.data_ptr(),
+            out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q,
+            tabs.q_barr)
     return out
 
 
@@ -201,15 +351,20 @@ def ntt_fwd(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
-    """Plain PyTorch version of ntt_inv (any device)."""
-    _check(x, tabs, "ntt_inv_plain")
-    n, q = tabs.n, tabs.q
-    R = x.shape[0]
+def _inv_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
+                      part: int = 0) -> torch.Tensor:
+    """Inverse stages on rows (R, len) of values < 2q, which stay < 2q.  With
+    parts = 1: the whole row's stages m = n/2 .. 2 (the last is the caller's).
+    With parts > 1: all stages inside piece `part` of rows of n = parts * len,
+    stage ml here being stage m = parts * ml of the whole row, whose twiddles
+    start at n - 2m + 1 (`csrc/ntt_kernels.cuh`, inv_stages)."""
+    q = tabs.q
+    R, length = x.shape
+    n = parts * length
     inv, inv_p = tabs.tab[2], tabs.tab[3]
-    x = w.barrett_canonical(x, q, tabs.q_barr)
-    t, root, m = 1, 1, n >> 1
-    while m > 1:
+    t, m = 1, length >> 1
+    while m >= (1 if parts > 1 else 2):
+        root = n - 2 * parts * m + 1 + part * m
         v = x.view(R, m, 2, t)
         W = inv[root : root + m].view(1, m, 1)
         Wp = inv_p[root : root + m].view(1, m, 1)
@@ -217,12 +372,28 @@ def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
         x = torch.stack(
             [w.cond_sub64(X + Y, 2 * q),
              w.mul_mod_lazy(X + 2 * q - Y, W, Wp, q)], dim=2,
-        ).view(R, n)
-        root += m
+        ).view(R, length)
         t <<= 1
         m >>= 1
+    return x
+
+
+def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables,
+                  split: bool | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ntt_inv (any device); `split` as in
+    ntt_fwd_plain."""
+    _check(x, tabs, "ntt_inv_plain", forward=False)
+    if split is None:
+        split = route(tabs.n) == "wide"
+    q, h = tabs.q, tabs.n >> 1
+    x = w.barrett_canonical(x, q, tabs.q_barr)
+    if split:
+        x = torch.cat(
+            [_inv_stages_plain(x[:, part * h : (part + 1) * h].contiguous(),
+                               tabs, 2, part) for part in range(2)], dim=1)
+    else:
+        x = _inv_stages_plain(x, tabs)
     # last stage fused with the n^-1 scaling
-    h = n >> 1
     X, Y = x[:, :h], x[:, h:]
     tx = w.cond_sub64(X + Y, 2 * q)
     ty = X + 2 * q - Y
@@ -235,13 +406,15 @@ def ntt_inv(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
     """Inverse negacyclic NTT of each row of x (R, n) int64 under tabs.q:
     bit-reversed in, natural out, scaled by n^-1, canonical.  The canonical
     output matters: callers re-reduce its integer value under other moduli."""
-    _check(x, tabs, "ntt_inv")
+    _check(x, tabs, "ntt_inv", forward=False)
     if x.device.type == "cpu":
         return ntt_inv_plain(x, tabs)
+    name = "ntt_inv" if route(tabs.n) == "row" else "ntt_inv_wide"
     out = torch.empty_like(x)
-    _launch("ntt_inv", _lib().hexl_ntt_inv, x, x.data_ptr(), out.data_ptr(),
-            tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr,
-            tabs.inv_n, tabs.inv_n_precon, tabs.inv_n_w, tabs.inv_n_w_precon)
+    _launch(name, getattr(_lib(), f"hexl_{name}"), x, x.data_ptr(),
+            out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q,
+            tabs.q_barr, tabs.inv_n, tabs.inv_n_precon, tabs.inv_n_w,
+            tabs.inv_n_w_precon)
     return out
 
 
@@ -281,6 +454,11 @@ def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
         raise ValueError("ntt_fwd_tail: e, acc, res must share one shape")
     if e.device.type == "cpu":
         return ntt_fwd_tail_plain(e, acc, res, tabs, fix, msf, msf_precon)
+    if route(tabs.n) != "row":
+        raise ValueError(
+            f"ntt_fwd_tail: no kernel serves n = {tabs.n} (a row must fit one "
+            f"block's shared memory, n <= 16384)"
+        )
     out = torch.empty_like(e)
     _launch("ntt_fwd_tail", _lib().hexl_ntt_fwd_tail, e, e.data_ptr(),
             acc.data_ptr(), res.data_ptr(), out.data_ptr(),

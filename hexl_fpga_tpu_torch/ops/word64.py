@@ -165,6 +165,29 @@ def mulhi64(a, b):
     return p11 + lshr64(p01, 32) + lshr64(p10, 32) + lshr64(mid, 32)
 
 
+def mul64_full(a, b):
+    """The 128-bit product as (low 64 bits, high 64 bits)."""
+    return mullo64(a, b), mulhi64(a, b)
+
+
+def shift128_right(lo, hi, s):
+    """Low 64 bits of the 128-bit value (hi, lo) >> s, for tensors lo, hi and
+    s in [0, 63]: an int, or an int64 tensor that broadcasts against lo (one
+    shift per modulus).  Written so that s = 0 shifts nothing by 64: the
+    smeared sign bits of `lo >> s` are masked with ~((-1 << (63 - s)) << 1),
+    and the high word enters as (hi << 1) << (63 - s)."""
+    if isinstance(s, (int, np.integer)):
+        s = int(s)
+        if not 0 <= s <= 63:
+            raise ValueError(f"shift128_right: s must be in [0, 63], got {s}")
+        up = 63 - s
+        keep = const64(~((-1 << up) << 1))
+    else:
+        up = 63 - s
+        keep = ~(torch.bitwise_left_shift(torch.full_like(up, -1), up) << 1)
+    return ((lo >> s) & keep) | ((hi << 1) << up)
+
+
 def mulhi64_approx(a, b):
     """High 64 bits of a*b UNDERestimating by at most 2: the a_lo*b_lo
     partial product and the whole low-half carry chain are dropped — exactly
@@ -221,6 +244,28 @@ def reduce_mod_factor(x, q, factor: int):
         f >>= 1
         x = cond_sub64(x, q * f)
     return x
+
+
+def mul_mod_traced(x, y, q, barr, length):
+    """(x * y) mod q with per-element (runtime) moduli: the reference MultMod
+    (`device/mod_ops.hpp:31-84`), as `hexl_fpga_tpu/ops/word64.py`
+    mul_mod_traced computes it.
+
+      length = floor(log2 q) - 1,  barr = floor(2^(length+64) / q) (64 bits),
+      x, y shrunk from [0, 4q) by two conditional subtracts (larger raw values
+      lose 3q at most and stay exact while the product is below 2^(length+64)),
+      c1 = (x*y) >> length (low 64 bits), c3 = mulhi64(c1, barr),
+      c4 = lo64(x*y) - c3*q, one conditional subtract.
+
+    q, barr: ints or int64 tensors broadcastable against x; length: an int or
+    an integer tensor in [0, 62]."""
+    twice_q = _c(q) << 1
+    x = cond_sub64(cond_sub64(x, twice_q), q)
+    y = cond_sub64(cond_sub64(y, twice_q), q)
+    lo, hi = mul64_full(x, y)
+    c1 = shift128_right(lo, hi, length)
+    c3 = mulhi64(c1, barr)
+    return cond_sub64(sub64(lo, mullo64(c3, q)), q)
 
 
 def mul_mod_static(x, y, q: int):

@@ -35,7 +35,7 @@ BATCH = 32
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "ntt_fwd_tail_kernel")
 
 
-def _wall_ms(fn):
+def wall_ms(fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -43,8 +43,8 @@ def _wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def _device_table(prof, wall_ms, top=8):
-    """Device time by kernel from a finished profile, against the window."""
+def device_rows(prof) -> dict:
+    """Device milliseconds by kernel (or copy) name from a finished profile."""
     rows = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
@@ -52,12 +52,18 @@ def _device_table(prof, wall_ms, top=8):
         if us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
             name = ev.key.split("(")[0][:90]  # without the argument list
             rows[name] = rows.get(name, 0.0) + us / 1e3
+    return rows
+
+
+def _device_table(prof, window_ms, top=8):
+    """Device time by kernel from a finished profile, against the window."""
+    rows = device_rows(prof)
     busy = sum(rows.values())
     ntt = {k: v for k, v in rows.items() if k in NTT_KERNELS}
     rest = sorted(((v, k) for k, v in rows.items() if k not in ntt), reverse=True)
     return {
-        "window_ms": wall_ms, "device_busy_ms": busy,
-        "device_idle_share": 1 - busy / wall_ms,
+        "window_ms": window_ms, "device_busy_ms": busy,
+        "device_idle_share": 1 - busy / window_ms,
         "ntt_kernels_ms": ntt,
         "ntt_kernels_share_of_busy": sum(ntt.values()) / busy,
         "largest_other_ms": {k: v for v, k in rest[:top]},
@@ -89,22 +95,22 @@ def main(argv) -> int:
     # the executor's steps for one batch, one by one (second pass is reported)
     for _ in range(2):
         steps = {}
-        (t_np, r_np), steps["stack"] = _wall_ms(
+        (t_np, r_np), steps["stack"] = wall_ms(
             lambda: (np.stack(ts).reshape(BATCH, L, n),
                      np.stack(rs).reshape(BATCH, 2, L, n)))
-        (t, r), steps["host_to_device"] = _wall_ms(
+        (t, r), steps["host_to_device"] = wall_ms(
             lambda: (w.from_u64_np(t_np, device), w.from_u64_np(r_np, device)))
-        out, steps["device_body"] = _wall_ms(lambda: ctx._build(t, keys, kp, r, msf))
-        host, steps["device_to_host"] = _wall_ms(lambda: w.to_u64_np(out))
+        out, steps["device_body"] = wall_ms(lambda: ctx._build(t, keys, kp, r, msf))
+        host, steps["device_to_host"] = wall_ms(lambda: w.to_u64_np(out))
         dst = [np.empty_like(x) for x in rs]
-        _, steps["scatter"] = _wall_ms(lambda: [
+        _, steps["scatter"] = wall_ms(lambda: [
             np.copyto(d, host[b].reshape(d.shape)) for b, d in enumerate(dst)])
     steps["sum"] = sum(steps.values())
     print(json.dumps({"host_steps_ms": steps}), flush=True)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = _wall_ms(lambda: ctx._build(t, keys, kp, r, msf))
+        _, wall = wall_ms(lambda: ctx._build(t, keys, kp, r, msf))
     print(json.dumps({"device_body": _device_table(prof, wall)}), flush=True)
 
     os.environ["BATCH_SIZE_KEYSWITCH"] = str(BATCH)
@@ -123,7 +129,7 @@ def main(argv) -> int:
     api_pass([x.copy() for x in rs + rs])
     res = [x.copy() for x in rs + rs]
     with torch.profiler.profile(activities=acts) as prof:
-        _, wall = _wall_ms(lambda: api_pass(res))
+        _, wall = wall_ms(lambda: api_pass(res))
     hexl.release_FPGA_resources()
     table = _device_table(prof, wall)
     table["ops"] = 2 * BATCH

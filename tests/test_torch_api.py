@@ -7,8 +7,11 @@ import numpy as np
 import pytest
 import torch
 
+import hexl_fpga_tpu as jhexl
 import hexl_fpga_tpu_torch as hexl
+from hexl_fpga_tpu import api as japi, config as jconfig
 from hexl_fpga_tpu_torch import api, config as config_mod
+from hexl_fpga_tpu_torch.ops import golden, nt
 from hexl_fpga_tpu_torch.runtime import executors, scheduler
 from hexl_fpga_tpu_torch.utils import vectors
 from hexl_fpga_tpu_torch.utils.debug import HexlAssertError
@@ -209,13 +212,133 @@ def test_null_buffers_and_worksize_validation(vec, runtime):
 
 
 def test_not_ported_entry_points_raise(vec, runtime):
+    """What is left unported raises by name; the 14 functions of the header
+    are all there, with the reference's signatures."""
+    import inspect
+
     runtime(RUN_CHOICE=1)
-    for fn in (hexl.DyadicMultiply, hexl._NTT, hexl._INTT):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            fn(None)
     with pytest.raises(NotImplementedError, match="plain_modulus"):
         keyswitch(vec, vec.input.copy(), plain_modulus=65537)
     assert api.acquire_GPU_resources is api.acquire_FPGA_resources
+    assert api.release_GPU_resources is api.release_FPGA_resources
+    names = [n for n, f in vars(japi).items()
+             if inspect.isfunction(f) and f.__module__ == japi.__name__
+             and n != "_deprecated" and "_TPU_" not in n]
+    assert len(names) == 14
+    for name in names:
+        assert getattr(hexl, name) is getattr(api, name)
+        assert (inspect.signature(getattr(api, name))
+                == inspect.signature(getattr(japi, name))), name
+
+
+# -- DyadicMultiply section ---------------------------------------------------
+
+
+def ramp_io(num_ops, num_moduli, n):
+    """The reference's ramp stimulus (`tests/test_dyadic_multiply.cpp:32-109`):
+    per op its own composite moduli 10, 20, 30, ... and raw operands far
+    beyond 4q, flat in the API's [2][M][n] layout."""
+    i = np.arange(n, dtype=np.uint64)
+    moduli, op1, op2 = [], [], []
+    for b in range(num_ops):
+        moduli.append([(b + m + 1) * 10 for m in range(num_moduli)])
+        flat = lambda offs: np.concatenate(
+            [np.uint64(b + off) + i + np.uint64(m * n)
+             for off in offs for m in range(num_moduli)])
+        op1.append(flat((1, 11)))
+        op2.append(flat((2, 22)))
+    return moduli, op1, op2
+
+
+@pytest.fixture
+def jax_runtime(monkeypatch):
+    """The JAX package's runtime under RUN_CHOICE=1 beside the port's."""
+    monkeypatch.setenv("RUN_CHOICE", "1")
+    jconfig.reset_config()
+    jhexl.acquire_FPGA_resources()
+    yield jhexl
+    jhexl.release_FPGA_resources()
+    jconfig.reset_config()
+
+
+def drive_dyadic(pkg, op1, op2, n, moduli, M):
+    outs = [np.zeros(3 * M * n, dtype=np.uint64) for _ in op1]
+    pkg.set_worksize_DyadicMultiply(len(op1))
+    for o, a, b, q in zip(outs, op1, op2, moduli):
+        pkg.DyadicMultiply(o, a, b, n, q, M)
+    assert pkg.DyadicMultiplyCompleted()
+    return outs
+
+
+@pytest.mark.parametrize("run_choice", [0, 1])
+@pytest.mark.parametrize("worksize", [1, 4])
+def test_dyadic_multiply_ramp_matches_jax_api(runtime, jax_runtime, run_choice, worksize):
+    """Each op has its own moduli, so every op is fenced into its own batch."""
+    runtime(RUN_CHOICE=run_choice, BATCH_SIZE_DYADIC_MULTIPLY=4)
+    n, M = 64, 3
+    moduli, op1, op2 = ramp_io(worksize, M, n)
+    outs = drive_dyadic(hexl, op1, op2, n, moduli, M)
+    ref = drive_dyadic(jax_runtime, op1, op2, n, moduli, M)
+    for o, r, a, b, q in zip(outs, ref, op1, op2, moduli):
+        np.testing.assert_array_equal(o, golden.dyadic_multiply(a, b, n, q, M))
+        np.testing.assert_array_equal(o, r)
+
+
+@pytest.mark.parametrize("bits,worksize", [(51, 7), (20, 4)])
+def test_dyadic_multiply_batches_match_jax_api(runtime, jax_runtime, bits, worksize):
+    """One moduli vector, operands in [0, 4q), batches of 4 (7 ops leave a
+    short last batch)."""
+    pool = runtime(RUN_CHOICE=1, BATCH_SIZE_DYADIC_MULTIPLY=4)
+    n, M = 256, 3
+    q = [int(x) for x in nt.generate_primes(M, bits, n)]
+    rng = np.random.default_rng(bits)
+    mk = lambda: [np.concatenate([rng.integers(0, 4 * q[m], size=n, dtype=np.uint64)
+                                  for _ in range(2) for m in range(M)])
+                  for _ in range(worksize)]
+    op1, op2 = mk(), mk()
+    moduli = [q + [12345]] * worksize  # entries past n_moduli are ignored
+    outs = drive_dyadic(hexl, op1, op2, n, moduli, M)
+    assert pool._worksize[scheduler.DYADIC_MULTIPLY] == 1
+    ref = drive_dyadic(jax_runtime, op1, op2, n, moduli, M)
+    for o, r, a, b in zip(outs, ref, op1, op2):
+        np.testing.assert_array_equal(o, golden.dyadic_multiply(a, b, n, q, M))
+        np.testing.assert_array_equal(o, r)
+
+
+def test_dyadic_multiply_validation(runtime):
+    runtime(RUN_CHOICE=1)
+    a = np.zeros(2 * 8, dtype=np.uint64)
+    out = np.zeros(3 * 8, dtype=np.uint64)
+    for args in ((None, a, a, 8, [17], 1), (out, None, a, 8, [17], 1),
+                 (out, a, None, 8, [17], 1), (out, a, a, 0, [17], 1),
+                 (out, a, a, 8, [17], 0)):
+        with pytest.raises(HexlAssertError):
+            hexl.DyadicMultiply(*args)
+    with pytest.raises(HexlAssertError):
+        hexl.set_worksize_DyadicMultiply(0)
+    with pytest.raises(ValueError, match=">= 2"):  # surfaces on completion
+        hexl.DyadicMultiply(out, a, a, 8, [1], 1)
+
+
+def test_mixed_dyadic_and_keyswitch(vec, runtime):
+    """Interleaved DyadicMultiply + KeySwitch batches, the combined-kernel
+    test (`tests/test_dyadic_multiply_keyswitch.cpp`)."""
+    runtime(RUN_CHOICE=1)
+    M = 2
+    moduli, op1, op2 = ramp_io(2, M, N)
+    outs = [np.zeros(3 * M * N, dtype=np.uint64) for _ in range(2)]
+    ks_res = vec.input.copy()
+    hexl.set_worksize_DyadicMultiply(2)
+    hexl.set_worksize_KeySwitch(1)
+    hexl.DyadicMultiply(outs[0], op1[0], op2[0], N, moduli[0], M)
+    keyswitch(vec, ks_res)
+    hexl.DyadicMultiply(outs[1], op1[1], op2[1], N, moduli[1], M)
+    assert hexl.KeySwitchCompleted()
+    assert hexl.DyadicMultiplyCompleted()
+    np.testing.assert_array_equal(ks_res, vec.expected_output)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            outs[i], golden.dyadic_multiply(op1[i], op2[i], N, moduli[i], M))
 
 
 def test_run_choice_2_without_cuda_raises(monkeypatch):

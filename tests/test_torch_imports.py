@@ -13,12 +13,15 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "hexl_fpga_tpu_torch", "hexl_fpga_tpu_torch.api", "hexl_fpga_tpu_torch.config",
     "hexl_fpga_tpu_torch.convert", "hexl_fpga_tpu_torch.ops._build",
+    "hexl_fpga_tpu_torch.ops.dyadic_cuda",
     "hexl_fpga_tpu_torch.ops.golden", "hexl_fpga_tpu_torch.ops.keyswitch_cuda",
     "hexl_fpga_tpu_torch.ops.nt", "hexl_fpga_tpu_torch.ops.ntt_cuda",
     "hexl_fpga_tpu_torch.ops.twiddles", "hexl_fpga_tpu_torch.ops.word64",
     "hexl_fpga_tpu_torch.runtime.executors", "hexl_fpga_tpu_torch.runtime.scheduler",
     "hexl_fpga_tpu_torch.utils.debug", "hexl_fpga_tpu_torch.utils.keycache",
     "hexl_fpga_tpu_torch.utils.vectors",
+    "hexl_fpga_tpu_torch.utils.profile_keyswitch",
+    "hexl_fpga_tpu_torch.utils.profile_paths",
 ]
 
 
@@ -79,7 +82,7 @@ def test_cuda_launch_path_raises_without_cuda():
         pytest.skip("a CUDA device is present")
     code = (
         "import numpy as np\n"
-        "from hexl_fpga_tpu_torch.ops import ntt_cuda, keyswitch_cuda\n"
+        "from hexl_fpga_tpu_torch.ops import dyadic_cuda, ntt_cuda, keyswitch_cuda\n"
         "import hexl_fpga_tpu_torch as hexl\n"
         "def raises(fn):\n"
         "    try: fn()\n"
@@ -90,8 +93,16 @@ def test_cuda_launch_path_raises_without_cuda():
         "assert raises(lambda: ntt_cuda.modulus_tables(1024, 1073750017, device='cuda'))\n"
         "assert raises(lambda: keyswitch_cuda.get_context(1024, 1, 2, 2, 2,\n"
         "              [1073750017, 1073872897]))\n"
+        "assert raises(lambda: ntt_cuda.modulus_tables(32768, 1152921504606584833,\n"
+        "              device='cuda'))\n"
+        "t = ntt_cuda.modulus_tables(1024, 1073750017)\n"
+        "assert raises(lambda: ntt_cuda.caller_fwd_tables(1024, t.q, t.tab[0].numpy(),\n"
+        "              t.tab[1].numpy(), device='cuda'))\n"
+        "assert raises(lambda: dyadic_cuda.runner([17], device='cuda'))\n"
+        "assert raises(lambda: dyadic_cuda.dyadic_multiply_np(a[0], a[0], 512, [17], 1))\n"
         "assert raises(hexl.acquire_FPGA_resources)\n"
-        "assert ntt_cuda.LAUNCHES == {'ntt_fwd': 0, 'ntt_inv': 0, 'ntt_fwd_tail': 0}\n"
+        "assert set(ntt_cuda.LAUNCHES.values()) == {0} and len(ntt_cuda.LAUNCHES) == 5\n"
+        "assert dyadic_cuda.LAUNCHES == {'dyadic_mul': 0}\n"
         "print('raised')\n"
     )
     res = run_py(code)

@@ -173,4 +173,5 @@ def test_cpu_tensors_launch_nothing(q):
     ntt_cuda.ntt_fwd(x, tabs)
     ntt_cuda.ntt_inv(x, tabs)
     ntt_cuda.ntt_fwd_tail(x, x, x, tabs, 0, 1, 1)
-    assert ntt_cuda.LAUNCHES == {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0}
+    assert ntt_cuda.LAUNCHES == dict.fromkeys(
+        ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_wide", "ntt_inv_wide"), 0)

@@ -191,3 +191,66 @@ def test_precon64_np_exact_vs_bigint(bits):
     want = np.array([(int(k) << 64) // q for k in ks], dtype=np.uint64)
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, jw.precon64_np(ks, q))
+
+
+def test_mul64_full(xy):
+    xs, ys = xy
+    lo, hi = w.mul64_full(t64(xs), t64(ys))
+    assert ints(lo) == [(x * y) & M64 for x, y in zip(xs, ys)]
+    assert ints(hi) == [(x * y) >> 64 for x, y in zip(xs, ys)]
+    p0, p1, p2, p3 = jw.mul64_full(jpair(xs), jpair(ys))
+    assert ints(lo) == from_jax((p0, p1)) and ints(hi) == from_jax((p2, p3))
+
+
+@pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 62, 63])
+def test_shift128_right_static_and_per_element(xy, s):
+    """s = 0 is the trap: nothing may be shifted by 64."""
+    xs, ys = xy
+    want = [(((h << 64) | l) >> s) & M64 for l, h in zip(xs, ys)]
+    assert ints(w.shift128_right(t64(xs), t64(ys), s)) == want
+    per = torch.full((len(xs),), s, dtype=torch.int64)
+    assert ints(w.shift128_right(t64(xs), t64(ys), per)) == want
+    limbs = jpair(xs) + jpair(ys)
+    assert want == from_jax(jw._shift128_right_static(*limbs, s))
+    assert want == from_jax(jw._shift128_right_traced(*limbs, jnp.uint32(s)))
+    with pytest.raises(ValueError):
+        w.shift128_right(t64(xs), t64(ys), 64)
+
+
+def test_shift128_right_mixed_shifts(xy):
+    xs, ys = xy
+    ss = [i % 64 for i in range(len(xs))]
+    got = ints(w.shift128_right(t64(xs), t64(ys), torch.tensor(ss)))
+    assert got == [(((h << 64) | l) >> s) & M64 for l, h, s in zip(xs, ys, ss)]
+
+
+@pytest.mark.parametrize("q", [2, 3, 10, 30, (1 << 20) + 7, 1125899906826241,
+                               (1 << 61) + 409, (1 << 62) - 57])
+def test_mul_mod_traced(rng, q):
+    """The reference MultMod with runtime moduli: exact on [0, 4q) for any
+    word-sized q (prime or not), with q, barr, len as scalars or as tensors,
+    and the JAX function's bits on any u64."""
+    ln = q.bit_length() - 2
+    barr = ((1 << (ln + 64)) // q) & M64
+    xs = [0, q - 1, 4 * q - 1, q] + [rng.randrange(4 * q) for _ in range(252)]
+    ys = [4 * q - 1, q - 1, 4 * q - 1, 1] + [rng.randrange(4 * q) for _ in range(252)]
+    want = [(x * y) % q for x, y in zip(xs, ys)]
+    assert ints(w.mul_mod_traced(t64(xs), t64(ys), q, barr, ln)) == want
+    k = len(xs)
+    qt, bt, lt = t64([q] * k), t64([barr] * k), torch.full((k,), ln)
+    assert ints(w.mul_mod_traced(t64(xs), t64(ys), qt, bt, lt)) == want
+    jq, jb, jl = jpair([q] * k), jpair([barr] * k), jnp.full((k,), ln, jnp.uint32)
+    assert want == from_jax(jw.mul_mod_traced(jpair(xs), jpair(ys), jq, jb, jl))
+    # raw operands beyond 4q stay exact while x*y < 2^(len+64)
+    cap = 1 << ((ln + 64) // 2)
+    rx = [rng.randrange(cap) for _ in range(64)]
+    ry = [rng.randrange(cap) for _ in range(64)]
+    assert ints(w.mul_mod_traced(t64(rx), t64(ry), q, barr, ln)) == [
+        (x * y) % q for x, y in zip(rx, ry)]
+    # any u64: no longer modular, still the reference's bits
+    ax = EDGES + [rng.randrange(1 << 64) for _ in range(52)]
+    ay = list(reversed(EDGES)) + [rng.randrange(1 << 64) for _ in range(52)]
+    k = len(ax)
+    assert ints(w.mul_mod_traced(t64(ax), t64(ay), q, barr, ln)) == from_jax(
+        jw.mul_mod_traced(jpair(ax), jpair(ay), jpair([q] * k), jpair([barr] * k),
+                          jnp.full((k,), ln, jnp.uint32)))

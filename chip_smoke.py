@@ -28,7 +28,22 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      52-bit prime in batches of 256 with the caller's tables, then 64 each way
      at n = 32768 under a 61-bit prime in batches of 32; every op against the
      golden transforms and the round trip against the input; 4 + 4 launches of
-     the row kernels, 2 + 2 of the wide ones.
+     the row kernels, 2 + 2 of the wide ones,
+  6. drives the device KeySwitch context by hand at 16384_6_7_7_2, batch 32
+     (`device_path`): the fused transform+MAC schedule (`fused_mac=True`)
+     against the default schedule bit for bit and two ops against the golden
+     model, with 7 inverse / 7 fused-MAC / 6 tail / 0 forward launches; the
+     `exact128` MAC and the unfused tail against the same output; the
+     schedules' device bodies timed side by side, ten turns each; the BGV tail
+     (`plain_modulus=65537`) fused against unfused, against the golden model,
+     and through `api.KeySwitch(plain_modulus=...)`; device handles, a chain
+     of depth 4 and a keyed chain over two key sets against sequential calls;
+     `hoist` + `run_hoisted` against `run_batch`, the Galois apply against the
+     generic permutation for g = 3 and g = 2n - 1, with their times.  The
+     kernel phase holds `ntt_fwd_mac` against its plain version at
+     (192, 16384) under the special prime and two decomp moduli, with and
+     without a skipped limb, on canonical and random 64-bit input, and at
+     n = 1024.
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -56,7 +71,8 @@ import torch
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
 from hexl_fpga_tpu_torch.ops import (
-    dyadic_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles, word64 as w,
+    dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles,
+    word64 as w,
 )
 from hexl_fpga_tpu_torch.utils import vectors
 
@@ -67,6 +83,10 @@ DYADIC_SRC = "hexl_fpga_tpu_torch/csrc/dyadic_kernels.cu"
 BATCH = 32
 WORKSIZE = 64
 N_VECTOR_OPS = 2  # ops that carry the frozen vector's own operands
+PLAIN_MODULUS = 65537  # BGV: coprime to q_k and below every modulus
+CHAIN_DEPTH = 4
+GALOIS_ELEMENTS = (3, -1)  # a rotation, and the conjugation 2n - 1
+BODY_TURNS = 10  # timings of each device body, the order reversed every turn
 
 # the DyadicMultiply path: the reference bench shape
 DYADIC_N, DYADIC_MODULI, DYADIC_BITS = 16384, 14, 50
@@ -108,6 +128,14 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def larger_bound(nbytes: int, imad: int):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate and
+    the 32-bit multiply-adds over their peak rate."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = imad / PEAK_IMAD32_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def bound(rows: int, n: int, arrays: int, extra_imad_per_coeff: int):
     """(bound_ms, bound_by) for one transform kernel: `arrays` (rows, n) u64
     arrays each read or written once plus the two table rows, against the
@@ -115,18 +143,14 @@ def bound(rows: int, n: int, arrays: int, extra_imad_per_coeff: int):
     log_n = n.bit_length() - 1
     nbytes = 8 * (arrays * rows * n + 2 * n)
     imad = rows * (n // 2) * log_n * IMAD_LAZY_MUL + rows * n * extra_imad_per_coeff
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = imad / PEAK_IMAD32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger_bound(nbytes, imad)
 
 
 def dyadic_bound(B: int, M: int, n: int):
     """(bound_ms, bound_by) for dyadic_mul: four u64 read and three written
     per (item, modulus, coefficient) plus the (3, M) constants, against four
     MultMods."""
-    t_bytes = (56 * B * M * n + 24 * M) / PEAK_BYTES_PER_S * 1e3
-    t_ops = B * M * n * 4 * IMAD_MULT_MOD / PEAK_IMAD32_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return larger_bound(56 * B * M * n + 24 * M, B * M * n * 4 * IMAD_MULT_MOD)
 
 
 def rotating(make, nbytes: int):
@@ -254,6 +278,78 @@ def check_kernels(vec, device):
                 lambda: ntt_cuda.ntt_inv(inv2_in(), tabs), 20)
         entries.append(entry)
     return entries
+
+
+def mac_bound(limbs: int, B: int, n: int, comp: int):
+    """(bound_ms, bound_by) for ntt_fwd_mac over `limbs` summed source limbs:
+    the data rows, the key and precon columns and the two table rows read
+    once and out written once, against the butterflies plus one Barrett and
+    `comp` lazy multiplies per coefficient and limb."""
+    log_n = n.bit_length() - 1
+    nbytes = 8 * (limbs * B * n + 2 * limbs * comp * n + comp * B * n + 2 * n)
+    imad = limbs * B * ((n // 2) * log_n * IMAD_LAZY_MUL
+                        + n * (IMAD_BARRETT + comp * IMAD_LAZY_MUL))
+    return larger_bound(nbytes, imad)
+
+
+def check_mac_kernel(vec, device):
+    """ntt_fwd_mac against its plain version, then its times; returns its
+    `kernels` entry."""
+    n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
+    ctx = keyswitch_cuda.get_context(
+        n, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors,
+        device=device,
+    )
+    keys, kp = ctx.device_keys(vec.key_vectors)
+    rng = np.random.default_rng(8)
+    err = 0
+
+    def same(data, keys, kp, j, tabs, skip_i):
+        got = ntt_cuda.ntt_fwd_mac(data, keys, kp, j, tabs, skip_i)
+        want = ntt_cuda.ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i)
+        limbs = keys.shape[0] - (skip_i is not None)
+        assert int(got.max()) < 2 * limbs * tabs.q, "lazy sum out of range"
+        return assert_same("ntt_fwd_mac", got, want)
+
+    # the special engine (column K - 1, nothing skipped) and decomp engines
+    # with the first and the last limb skipped; canonical and any-u64 input
+    for bits in (50, 64):
+        data = rand_u64(rng, (L * BATCH, n), bits, device)
+        for j, skip_i in ((K - 1, None), (0, 0), (L - 1, L - 1)):
+            err = max(err, same(data, keys, kp, j, ctx._tabs[j], skip_i))
+    # a small n under small moduli, K > L + 1
+    small_q = [int(q) for q in nt.generate_primes(4, 30, 1024)]
+    sk = np.stack([rng.integers(0, q, size=(2, 2, 1024), dtype=np.uint64)
+                   for q in small_q], axis=2)
+    sp = np.stack([w.precon64_np(sk[:, :, j], q) for j, q in enumerate(small_q)],
+                  axis=2)
+    sk, sp = w.from_u64_np(sk, device), w.from_u64_np(sp, device)
+    data = rand_u64(rng, (2 * 5, 1024), 64, device)
+    for j, skip_i in ((3, None), (1, 1), (0, 0)):
+        tabs = ntt_cuda.modulus_tables(1024, small_q[j], device=device)
+        err = max(err, same(data, sk, sp, j, tabs, skip_i))
+
+    sp_j = K - 1
+    tabs = ctx._tabs[sp_j]
+    ins = rotating(lambda: rand_u64(rng, (L * BATCH, n), 53, device),
+                   L * BATCH * n * 8)
+    b_ms, b_by = mac_bound(L, BATCH, n, 2)
+    skip_ms = time_ms(
+        lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, 0, ctx._tabs[0], 0), 20)
+    skip_b_ms, _ = mac_bound(L - 1, BATCH, n, 2)
+    return {
+        "name": "ntt_fwd_mac", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": "hexl_fpga_tpu/ops/ntt_mxu_pallas.py:520",
+        "shape": [L * BATCH, n], "launches": None, "max_abs_err": err,
+        "ms": time_ms(
+            lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, sp_j, tabs), 20),
+        "plain_ms": time_ms(
+            lambda: ntt_cuda.ntt_fwd_mac_plain(ins(), keys, kp, sp_j, tabs), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a modular NTT or a modular MAC
+        "library_ms": None,
+        "ms_with_skipped_limb": skip_ms, "bound_ms_with_skipped_limb": skip_b_ms,
+    }
 
 
 def dyadic_moduli():
@@ -660,6 +756,162 @@ def ntt_path(device, rehearse):
     return {"cells": cells, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the device KeySwitch context, driven by hand
+# ---------------------------------------------------------------------------
+
+
+def device_path(vec, device, rehearse):
+    """Every schedule, tail, handle, chain and hoisted apply of
+    KeySwitchContext at the vector's configuration, batch BATCH.  Each step
+    asserts; device tensors are compared on the device."""
+    n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
+    cfg = (n, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors)
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    checked = (0, N_VECTOR_OPS)  # a vector op and a seeded op, against golden
+
+    def make(**kw):
+        return keyswitch_cuda.KeySwitchContext(*cfg, device=device, **kw)
+
+    def golden_of(i, plain_modulus=None):
+        return golden.keyswitch(rs[i], ts[i], n, L, K, vec.rns_modulus_size, 2,
+                                vec.moduli, *keyed, vec.twiddle_factors,
+                                plain_modulus=plain_modulus)
+
+    ops = make_ops(vec, BATCH, seed=11)
+    rs = np.stack([r for r, _ in ops])
+    ts = np.stack([t for _, t in ops])
+    default = keyswitch_cuda.get_context(*cfg, device=device)
+    base = default.run_batch(rs, ts, *keyed)
+
+    # 1. the fused transform+MAC schedule: a first pass stages the keys, the
+    # second is the counted one
+    fused = make(fused_mac=True)
+    fused.run_batch(rs, ts, *keyed)
+    ntt_cuda.reset_launch_counts()
+    got = fused.run_batch(rs, ts, *keyed)
+    launches = dict(ntt_cuda.LAUNCHES)
+    np.testing.assert_array_equal(got, base, err_msg="fused_mac vs default")
+    t0 = time.perf_counter()
+    for i in checked:
+        np.testing.assert_array_equal(got[i], golden_of(i), err_msg=f"op {i}")
+    np.testing.assert_array_equal(got[0], vec.expected_output)
+    expected = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
+    if not rehearse:
+        expected.update(ntt_inv=L + 1, ntt_fwd_mac=L + 1, ntt_fwd_tail=L)
+    assert launches == expected, (launches, expected)
+
+    # 2. the other two schedules
+    exact = make(mac_impl="exact128")
+    unfused = make(fused_tail=False)
+    for name, c in (("exact128", exact), ("fused_tail=False", unfused)):
+        np.testing.assert_array_equal(c.run_batch(rs, ts, *keyed), base,
+                                      err_msg=f"{name} vs default")
+
+    # 4. BGV: fused against unfused tail, both against the golden model, and
+    # through the public API
+    bgv = keyswitch_cuda.get_context(*cfg, device=device,
+                                     plain_modulus=PLAIN_MODULUS)
+    bgv_out = bgv.run_batch(rs, ts, *keyed)
+    np.testing.assert_array_equal(
+        make(plain_modulus=PLAIN_MODULUS, fused_tail=False).run_batch(rs, ts, *keyed),
+        bgv_out, err_msg="BGV: unfused vs fused tail")
+    for i in checked:
+        np.testing.assert_array_equal(bgv_out[i], golden_of(i, PLAIN_MODULUS),
+                                      err_msg=f"BGV op {i}")
+    golden_s = time.perf_counter() - t0
+    assert not np.array_equal(bgv_out, base)
+    start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
+    api_ops = 4
+    results = [rs[i].copy() for i in range(api_ops)]
+    hexl.set_worksize_KeySwitch(api_ops)
+    for res, t in zip(results, ts):
+        hexl.KeySwitch(res, t, n, L, K, vec.rns_modulus_size, 2, vec.moduli,
+                       *keyed, vec.twiddle_factors, plain_modulus=PLAIN_MODULUS)
+    assert hexl.KeySwitchCompleted()
+    hexl.release_FPGA_resources()
+    np.testing.assert_array_equal(np.stack(results), bgv_out[:api_ops],
+                                  err_msg="api.KeySwitch(plain_modulus)")
+
+    # 5. handles and chains: operands stay on the device from here on
+    h_t = default.stage_target(ts)
+    h_c = default.stage_ciphertext(rs)
+    cur = h_c
+    for _ in range(CHAIN_DEPTH):
+        cur = default.run_device(cur, h_t, *keyed)
+    chain = default.run_device_chain(h_c, h_t, *keyed, depth=CHAIN_DEPTH)
+    assert torch.equal(chain.data, cur.data), "chain vs sequential run_device"
+    keys2 = [np.roll(np.asarray(kv, np.uint64).reshape(2, K, n), 7, axis=-1).reshape(-1)
+             for kv in vec.key_vectors]
+    key_sets, schedule = [vec.key_vectors, keys2], [1, 0, 0, 1]
+    seq = h_c
+    for s in schedule:
+        seq = default.run_device(seq, h_t, key_sets[s], vec.modswitch_factors)
+    chain_keyed = default.run_device_chain_keyed(
+        h_c, h_t, key_sets, vec.modswitch_factors, schedule)
+    assert torch.equal(chain_keyed.data, seq.data), "keyed chain vs sequential"
+    assert not torch.equal(chain_keyed.data, chain.data)
+    host = rs
+    for _ in range(CHAIN_DEPTH):  # the same chain, through the host each link
+        host = default.run_batch(host, ts, *keyed)
+    np.testing.assert_array_equal(chain.synchronize().to_host(), host)
+
+    # 6. hoisting and the Galois apply
+    dec = default.hoist(h_t)
+    assert dec.batch == BATCH and dec.data.shape == (L + 1, L * BATCH, n)
+    hoisted = default.run_hoisted(dec, h_c, *keyed)
+    assert torch.equal(hoisted.data, w.from_u64_np(base, device).view_as(hoisted.data))
+    for g in GALOIS_ELEMENTS:
+        sigma = galois_cuda.ntt_galois_sigma(n, g)
+        via_g = default.run_hoisted(dec, h_c, *keyed, galois=g)
+        via_perm = default.run_hoisted(dec, h_c, *keyed, perm=sigma)
+        assert torch.equal(via_g.data, via_perm.data), f"galois {g} vs perm"
+        assert not torch.equal(via_g.data, hoisted.data)
+    g = GALOIS_ELEMENTS[0]
+    x = rand_u64(np.random.default_rng(12), (BATCH, 2, L, n), 64, device)
+    index = galois_cuda.galois_index(n, g, device)
+    assert torch.equal(galois_cuda.apply_galois(x, g), x[..., index])
+
+    out = {
+        "config": vec.config_name, "batch": BATCH,
+        "schedules_equal_to_default": ["fused_mac", "exact128", "fused_tail=False"],
+        "ops_checked_vs_golden": 2 * len(checked), "golden_s": golden_s,
+        "plain_modulus": PLAIN_MODULUS, "api_ops_with_plain_modulus": api_ops,
+        "chain_depth": CHAIN_DEPTH, "keyed_schedule": schedule,
+        "galois_elements": [g % (2 * n) for g in GALOIS_ELEMENTS],
+        "launches": launches,
+    }
+    if not rehearse:
+        keys, kp = default.device_keys(vec.key_vectors)
+        msf = default.prepare_msf4(vec.modswitch_factors)
+        t, r = h_t.data, h_c.data
+        # A/B of the device bodies on staged operands, in turns
+        bodies = {"default": default, "fused_mac": fused, "exact128": exact,
+                  "fused_tail=False": unfused, "plain_modulus": bgv}
+        turns = {name: [] for name in bodies}
+        for turn in range(BODY_TURNS):
+            order = list(bodies) if turn % 2 == 0 else list(reversed(bodies))
+            for name in order:
+                c = bodies[name]
+                turns[name].append(time_ms(lambda: c._build(t, keys, kp, r, msf), 5))
+        out["build_ms_per_batch"] = {k: float(np.median(v)) for k, v in turns.items()}
+        out["build_ms_per_batch_turns"] = turns
+        out["fused_mac_faster_than_default_in_turns"] = sum(
+            f < d for f, d in zip(turns["fused_mac"], turns["default"]))
+        out["chain_ms"] = time_ms(
+            lambda: default.run_device_chain(h_c, h_t, *keyed, depth=CHAIN_DEPTH), 3)
+        sigma = galois_cuda.ntt_galois_sigma(n, g)
+        pkeys, pkp = default.device_keys(vec.key_vectors, hoist_perm=sigma)
+        out["hoist_ms"] = time_ms(lambda: default._decompose(t), 5)
+        out["hoisted_apply_ms"] = time_ms(
+            lambda: default._apply_hoisted(dec.data, r, keys, kp, msf), 5)
+        out["hoisted_apply_galois_ms"] = time_ms(
+            lambda: default._apply_hoisted(dec.data, r, pkeys, pkp, msf, index), 5)
+        out["galois_apply_ms"] = time_ms(lambda: galois_cuda.apply_galois(x, g), 10)
+        out["device_bytes_decomposition"] = dec.data.numel() * 8
+    return out
+
+
 def main(rehearse: bool = False) -> int:
     if rehearse:
         device = torch.device("cpu")
@@ -685,6 +937,7 @@ def main(rehearse: bool = False) -> int:
     kernels, at_path_shape = [], []
     if not rehearse:
         kernels = check_kernels(vec, device)
+        kernels.append(check_mac_kernel(vec, device))
         kernels.append(check_dyadic_kernel(device))
         wide, at_path_shape = check_standalone_transforms(device)
         kernels += wide
@@ -692,6 +945,7 @@ def main(rehearse: bool = False) -> int:
         "main_path": main_path(vec, device, rehearse),
         "dyadic_path": dyadic_path(device, rehearse),
         "ntt_path": ntt_path(device, rehearse),
+        "device_path": device_path(vec, device, rehearse),
     }
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape

@@ -3,8 +3,7 @@
 Same names, same signatures (numpy arrays in place of raw pointers), same
 async worksize/Completed protocol, same validation
 (`host/src/{keyswitch,ntt,intt,dyadic_multiply}.cpp` FPGA_ASSERT wrappers) as
-`hexl_fpga_tpu/api.py`.  KeySwitch's `plain_modulus` extension is not ported
-yet and raises.
+`hexl_fpga_tpu/api.py`, KeySwitch's `plain_modulus` extension included.
 """
 
 from __future__ import annotations
@@ -95,8 +94,10 @@ def KeySwitch(
     twiddle_factors: Optional[np.ndarray] = None,
     plain_modulus: Optional[int] = None,
 ) -> None:
-    """plain_modulus (the BGV tail, an extension beyond the reference ABI) is
-    accepted by the signature but not ported yet: it raises."""
+    """plain_modulus (an extension beyond the reference ABI): the BGV
+    plaintext modulus t.  The reference tail is CKKS/BFV-only; with t set, the
+    corrected tail keeps the subtracted value divisible by t (see
+    ops/golden.keyswitch).  Switching keys must carry t-scaled errors."""
     # validation mirrors `host/src/keyswitch.cpp:15-44`
     hexl_assert(result is not None, "requires result != nullptr")
     hexl_assert(t_target_iter_ptr is not None, "requires t_target_iter_ptr != nullptr")
@@ -131,7 +132,15 @@ def KeySwitch(
     hexl_assert(k_switch_keys is not None, "requires k_switch_keys != nullptr")
     hexl_assert(modswitch_factors is not None, "requires modswitch_factors != nullptr")
     if plain_modulus is not None:
-        raise NotImplementedError("plain_modulus (BGV tail): not ported yet")
+        from math import gcd
+
+        plain_modulus = int(plain_modulus)
+        hexl_assert(plain_modulus >= 2, "requires plain_modulus >= 2")
+        for i in range(key_modulus_size):
+            hexl_assert(
+                gcd(int(moduli[i]), plain_modulus) == 1,
+                "requires plain_modulus coprime to every modulus",
+            )
 
     moduli_arr = np.asarray(moduli, dtype=np.uint64)[:key_modulus_size].copy()
     msf = np.asarray(modswitch_factors, dtype=np.uint64)[:key_modulus_size].copy()
@@ -147,6 +156,7 @@ def KeySwitch(
         moduli_arr.tobytes(),
         msf.tobytes(),
         keys_id,
+        plain_modulus,
     )
     sched.pool().enqueue(
         sched.KEYSWITCH,
@@ -163,6 +173,7 @@ def KeySwitch(
             "k_switch_keys": list(k_switch_keys),
             "modswitch_factors": msf,
             "twiddle_factors": twiddle_factors,
+            "plain_modulus": plain_modulus,
         },
     )
 

@@ -3,8 +3,10 @@
 `hexl_fpga_tpu` carries every u64 as a (lo, hi) pair of uint32 planes and
 stages keyswitch operands as `(klo, khi, plo, phi)` key/precon planes and a
 `(K, 4)` uint32 `msf4` table, and moves DyadicMultiply and NTT batches as
-interleaved uint32 `[lo_j, hi_j]` arrays of twice the width; this package
-carries one int64 bit pattern per value.  These converters let a test feed
+interleaved uint32 `[lo_j, hi_j]` arrays of twice the width, as its device
+handles do (`DeviceCiphertext.data32`, `DeviceTarget.data32`), and keeps a
+hoisted decomposition as `(dlo, dhi)` planes; this package carries one int64
+bit pattern per value.  These converters let a test feed
 both packages the same staged operands and hold one's outputs against the
 other's.  Inputs are anything `np.asarray` accepts (numpy or
 device arrays of the other package); nothing of that package is imported.
@@ -31,7 +33,7 @@ def i64_to_pair(x: torch.Tensor):
 def interleaved_to_i64(x32, device="cpu") -> torch.Tensor:
     """(..., 2n) interleaved uint32 `[lo_j, hi_j]` (little-endian u64 bytes) ->
     (..., n) int64 tensor of the joined bit patterns."""
-    x32 = np.ascontiguousarray(np.asarray(x32, dtype=np.uint32))
+    x32 = np.array(x32, dtype=np.uint32, order="C")  # a writable copy
     return w.from_u64_np(x32.view(np.uint64), device)
 
 
@@ -50,3 +52,29 @@ def msf_from_msf4(msf4) -> np.ndarray:
         [w.from_pair_np(m[:, 0], m[:, 1]), w.from_pair_np(m[:, 2], m[:, 3])],
         axis=1,
     )
+
+
+def i64_to_interleaved(x: torch.Tensor) -> np.ndarray:
+    """(..., n) int64 tensor -> (..., 2n) interleaved uint32 `[lo_j, hi_j]`, the
+    layout of the reference's `data32`."""
+    return w.to_u64_np(x).view(np.uint32)
+
+
+def handle_from_data32(data32, ctx):
+    """A reference handle's `data32` ((B, comp, L, 2n) of a DeviceCiphertext or
+    (B, L, 2n) of a DeviceTarget) -> this package's handle of the same kind on
+    ctx's device."""
+    from .ops import keyswitch_cuda as ks
+
+    data = interleaved_to_i64(data32, ctx.device)
+    kind = {4: ks.DeviceCiphertext, 3: ks.DeviceTarget}[data.dim()]
+    return kind(data, ctx)
+
+
+def decomposition_from_pairs(dlo, dhi, ctx):
+    """A reference DeviceDecomposition's `(dlo, dhi)` planes, each
+    (L+1, L*B, n) uint32 -> this package's DeviceDecomposition on ctx's device
+    (the same lazy representatives, which every consumer reduces)."""
+    from .ops import keyswitch_cuda as ks
+
+    return ks.DeviceDecomposition(pair_to_i64(dlo, dhi, ctx.device), ctx)

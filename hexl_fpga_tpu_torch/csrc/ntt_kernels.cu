@@ -3,13 +3,15 @@
 //   hexl_ntt_fwd       batched forward NTT, any u64 in -> canonical, bit-reversed out
 //   hexl_ntt_inv       batched inverse NTT, bit-reversed in -> canonical, natural out
 //   hexl_ntt_fwd_tail  keyswitch tail: +fix, forward NTT, modswitch, accumulate
+//   hexl_ntt_fwd_mac   keyswitch engine: forward NTT fused with the key MAC
 //   hexl_ntt_fwd_wide  hexl_ntt_fwd for a row of twice a block's shared memory
 //   hexl_ntt_inv_wide  hexl_ntt_inv for such a row
 //
 // The first three replace the fused MXU kernels of
 // hexl_fpga_tpu/ops/ntt_mxu_pallas.py (_fwd_kernel, _inv_kernel, the
-// raw_fwd_tail_call kernel).  Those compute the transform as two int8-limb
-// matrix products because their target has no 64-bit integers; this card has
+// raw_fwd_tail_call kernel), and hexl_ntt_fwd_mac replaces the
+// raw_fwd_mac_call kernel of the same file.  Those compute the transform as
+// two int8-limb matrix products because their target has no 64-bit integers; this card has
 // them (__umul64hi), so the transform here is the Harvey butterfly network
 // itself.  With the wide pair they are also the counterpart of the batched
 // butterfly kernels of hexl_fpga_tpu/ops/ntt_pallas.py (_fwd_kernel,
@@ -99,6 +101,51 @@ ntt_fwd_tail_kernel(const u64* __restrict__ e, const u64* __restrict__ acc,
     t1 = cond_sub(cond_sub(cond_sub(t1, 4 * q), 2 * q), q);
     const u64 delta = cond_sub(mul_lazy(t1, msf, msf_p, q), q);
     out[base + i] = cond_sub(res[base + i] + delta, q);
+  }
+}
+
+// Keyswitch engine for one modulus q (column j of the staged keys): the
+// forward NTT of source limb i of batch element b, multiplied into every key
+// component k and added to out[k, b]:
+//   out[k, b, x] += mul_lazy(NTT_q(data[i*B + b] mod q)[x], keys[i, k, j, x])
+// The counterpart on the other target walks a (batch tile, i) grid in order
+// with the accumulator block resident in fast memory across i.  Here blocks
+// run in no order and a row's `comp` accumulators (2 x 128 KB at n = 16384)
+// do not fit beside the row in a block's 227 KB, so the grid is (B, active
+// limbs), each block one transform, and the terms meet in a zeroed `out`
+// through atomicAdd on u64: wrapping 64-bit adds commute, so the sum carries
+// the same bits in any order.  The transform output never reaches device
+// memory.  reduce4 before the multiply fixes each term's bits whatever the
+// stages leave in [0, 4q), so the kernel equals its plain version bit for
+// bit; each term is in [0, 2q) and the sum below 2 * L * q.  `skip` (-1 for
+// none) is the source limb left to the caller: blockIdx.y counts the others.
+// keys / kp are the whole (L, comp, K, n) tensors; element (i, k, j, x) lies
+// at ((i * comp + k) * K + j) * n + x.
+// Bound: operations by the count (it writes comp * B rows where ntt_fwd
+// writes L * B, and adds comp lazy multiplies per coefficient; chip_smoke.py
+// computes both sides).  What it costs above ntt_fwd is comp * rows * n
+// atomics in L2 in place of rows * n plain stores.
+__global__ void __launch_bounds__(1024)
+ntt_fwd_mac_kernel(const u64* __restrict__ data, const u64* __restrict__ keys,
+                   const u64* __restrict__ kp, u64* __restrict__ out,
+                   const u64* __restrict__ tab, int n, int B, int comp, int K,
+                   int j, int skip, u64 q, u64 q_barr) {
+  u64* s = smem_row;
+  const int b = blockIdx.x;
+  int i = blockIdx.y;
+  if (skip >= 0 && i >= skip) ++i;
+  const size_t base = ((size_t)i * B + b) * n;
+  for (int x = threadIdx.x; x < n; x += blockDim.x)
+    s[x] = barrett_canonical(data[base + x], q, q_barr);
+  __syncthreads();
+  fwd_stages(s, tab, tab + n, n, q, 1, 0);
+  for (int x = threadIdx.x; x < n; x += blockDim.x) {
+    const u64 v = reduce4(s[x], q);
+    for (int k = 0; k < comp; ++k) {
+      const size_t at = (((size_t)i * comp + k) * K + j) * n + x;
+      atomicAdd(&out[((size_t)k * B + b) * n + x],
+                mul_lazy(v, keys[at], kp[at], q));
+    }
   }
 }
 
@@ -202,6 +249,25 @@ extern "C" int hexl_ntt_fwd_tail(const void* e, const void* acc,
                         (cudaStream_t)stream>>>(
       (const u64*)e, (const u64*)acc, (const u64*)res, (u64*)out,
       (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
+  return (int)cudaGetLastError();
+}
+
+// out (comp, B, n) needs no initialisation: it is zeroed here, on the stream.
+// L source limbs, of which `skip` (-1: none) is left out; L - 1 >= 1 then.
+extern "C" int hexl_ntt_fwd_mac(const void* data, const void* keys,
+                                const void* kp, void* out, const void* tab,
+                                int L, int B, int comp, int K, int j, int skip,
+                                int n, u64 q, u64 q_barr, void* stream) {
+  cudaError_t err = opt_in_smem(ntt_fwd_mac_kernel, n);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(out, 0, (size_t)comp * B * n * sizeof(u64),
+                        (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B, skip >= 0 ? L - 1 : L);
+  ntt_fwd_mac_kernel<<<grid, threads_for(n), n * sizeof(u64),
+                       (cudaStream_t)stream>>>(
+      (const u64*)data, (const u64*)keys, (const u64*)kp, (u64*)out,
+      (const u64*)tab, n, B, comp, K, j, skip, q, q_barr);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 """KeySwitch on the card: hand-written NTT kernels composed with torch glue.
 
-The counterpart of `hexl_fpga_tpu/ops/keyswitch_tpu.py` (`KeySwitchTpuContext`,
-default schedule: separate deferred-quotient MAC, fused tail).  Per batch of B
-ops at (n, L decomp moduli, K key moduli, 2 key components):
+The counterpart of `hexl_fpga_tpu/ops/keyswitch_tpu.py` (`KeySwitchTpuContext`
+with its handles, chains and hoisting).  Per batch of B ops at (n, L decomp
+moduli, K key moduli, 2 key components) the default schedule is
 
   INTT1            one ntt_inv per decomp modulus over (B, n)         L launches
   special engine   ntt_fwd of the stacked INTT1 outputs (L*B, n) under
@@ -11,26 +11,45 @@ ops at (n, L decomp moduli, K key moduli, 2 key components):
   decomp engines   ntt_fwd of the same stack under q_j, MAC          L launches
   tails            ntt_fwd_tail per decomp modulus over (2B, n)      L launches
 
-The stacked INTT1 outputs feed every engine UNREDUCED: ntt_fwd reduces any
-u64 on load, so the Barrett passes in front of each engine fold into the
-kernels.  The MAC glue, the special engine's Barrett and the +q_k/2 are plain
-torch ops on int64 bit patterns, as they are XLA-composed in the reference.
+and the constructor's options move parts of it:
+
+  fused_mac=True      each engine is ONE ntt_fwd_mac launch (transform and
+                      key MAC fused; the identity limb's term is added by the
+                      glue), L + 1 launches in place of L + 1 ntt_fwd and the
+                      MAC glue;
+  mac_impl="exact128" the MAC glue accumulates full 128-bit products and
+                      reduces once per sum (no precon reads);
+  fused_tail=False    the tail as torch glue around ntt_fwd;
+  plain_modulus=t     the BGV tail: a per-coefficient digit sigma, computed
+                      once from the INTT2 output, folded into every tail.
+
+The stacked INTT1 outputs feed every engine UNREDUCED: ntt_fwd, ntt_fwd_mac
+and ntt_fwd_tail reduce ANY u64 on load, so the Barrett passes in front of
+each engine fold into the kernels, and the reference's `data_bits` widening
+(53, or 54 under a plain modulus) has no counterpart.  The MAC glue, the
+special engine's Barrett, the +q_k/2 and sigma are plain torch ops on int64
+bit patterns, as they are XLA-composed in the reference.
 
 Values live on the device as one int64 bit pattern per u64; there are no
 (lo, hi) planes, no row padding to a tile and no interleaved staging entry —
-those exist in the reference for its target's sake.
+those exist in the reference for its target's sake.  A device handle
+(`DeviceTarget`, `DeviceCiphertext`, `DeviceDecomposition`) holds one such
+tensor on the context's device.
 """
 
 from __future__ import annotations
 
 import functools
+import hashlib
 import os
+from collections import OrderedDict
+from math import gcd
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
-from . import nt, ntt_cuda, twiddles, word64 as w
+from . import galois_cuda, nt, ntt_cuda, twiddles, word64 as w
 
 _NOT_PORTED = "not ported yet"
 
@@ -61,14 +80,14 @@ class KeySwitchContext:
         # positive value, compute from (n, decomp, key_modulus, comp) alone
         assert rns_modulus_size > 0, "requires rns_modulus_size > 0"
         assert mac_impl in ("deferred", "exact128"), mac_impl
-        if plain_modulus is not None:
-            raise NotImplementedError(f"plain_modulus (BGV tail): {_NOT_PORTED}")
-        if fused_mac:
-            raise NotImplementedError(f"fused_mac=True: {_NOT_PORTED}")
-        if mac_impl != "deferred":
-            raise NotImplementedError(f"mac_impl={mac_impl!r}: {_NOT_PORTED}")
-        if not fused_tail:
-            raise NotImplementedError(f"fused_tail=False: {_NOT_PORTED}")
+        if fused_mac and mac_impl == "exact128":
+            # the fused engine closes its own Harvey sums; the reference leaves
+            # the combination undefined (its fused route hands a 2-tuple to a
+            # 4-limb accumulator)
+            raise ValueError(
+                "fused_mac=True and mac_impl='exact128' do not combine: the "
+                "fused engine kernel has its own MAC schedule"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -80,6 +99,9 @@ class KeySwitchContext:
         self.K = key_modulus_size
         self.comp = key_component_count
         self.moduli = tuple(int(m) for m in moduli)
+        self.fused_mac = fused_mac
+        self.fused_tail = fused_tail
+        self.mac_impl = mac_impl
         assert self.K - 1 >= self.L, "special modulus must not be a decomp modulus"
         # 2n-th roots: derived from the caller's tables when provided
         # (fwd[bit_reverse(1)] = psi), else the canonical minimal root
@@ -91,10 +113,36 @@ class KeySwitchContext:
         self.qk = self.moduli[self.K - 1]
         self.qk_half = self.qk >> 1
         self.q_barr = [nt.barrett_factor(1, 64, q) for q in self.moduli]
-        self._fix = [
-            self.moduli[j] - (self.qk_half % self.moduli[j])
-            for j in range(self.L)
-        ]
+        # BGV mode (plain_modulus = t): the tail subtracts d' = [d]_qk + qk*u'
+        # with u' = [-[d]_qk * qk^{-1}]_t centered — divisible by t, so the
+        # switched ciphertext stays exact mod t (golden.keyswitch docstring).
+        # Implemented as a per-coefficient digit sigma = u' + t/2 in [0, t)
+        # computed once from the INTT2 output, then folded into each decomp
+        # tail as e += sigma * (qk mod q_j) with a BGV fix constant.
+        self.plain_modulus = None if plain_modulus is None else int(plain_modulus)
+        if self.plain_modulus is not None:
+            t = self.plain_modulus
+            assert t >= 2, "plain_modulus must be >= 2"
+            assert gcd(self.qk, t) == 1, (
+                "special modulus must be coprime to plain_modulus"
+            )
+            assert t < min(self.moduli), (
+                "plain_modulus must be below every coefficient modulus"
+            )
+            self.t_half = t >> 1
+            self.inv_qk_t = nt.inverse_mod(self.qk % t, t)
+            self.qk_half_t = self.qk_half % t
+            self.t_barr = nt.barrett_factor(1, 64, t)
+            self._fix = [
+                (-self.qk_half - self.qk * self.t_half) % self.moduli[j]
+                for j in range(self.L)
+            ]
+            self._qk_mod = [self.qk % self.moduli[j] for j in range(self.L)]
+        else:
+            self._fix = [
+                self.moduli[j] - (self.qk_half % self.moduli[j])
+                for j in range(self.L)
+            ]
         # tables only for the moduli the schedule transforms under: the decomp
         # moduli and the special prime
         self._tabs = {
@@ -119,34 +167,137 @@ class KeySwitchContext:
         < 2^58 for q <= 2^52 and L <= 7, so mod-2^64 arithmetic is lossless."""
         return w.sub64(wx_sum, w.mullo64(q_sum, q))
 
+    @staticmethod
+    def _mac_sum128(val, key):
+        """QUOTIENT-FREE MAC (mac_impl="exact128"): the full 128-bit products
+        key*val summed over the source limbs (dim 0) as a (low, high) pair of
+        64-bit halves; no Harvey quotient per term and the precon tables are
+        never read.  Exact: key < q < 2^52 and val any u64, so each product is
+        below 2^116 and a sum of at most 7 fits 128 bits."""
+        lo, hi = w.mul64_full(key, val)
+        acc = (lo[0], hi[0])
+        for i in range(1, lo.shape[0]):
+            acc = w.add128(acc, (lo[i], hi[i]))
+        return acc
+
+    @staticmethod
+    def _mac_close128(acc, q):
+        """128-bit sum (< 2^119) -> a lazy u64 representative below 4q.
+
+        V = A + 2^64 * B with A the low half (any u64) and B the high half
+        (< 2^55).  B reduces exactly (Barrett); A folds to a representative
+        below 3q with one floor(2^64/q) quotient (short by less than 2 for
+        ANY u64 A, each unit costing +q)."""
+        q = int(q)
+        barr = (1 << 64) // q
+        A, B = acc
+        b = w.barrett_reduce64(B, q, barr)
+        t = w.mul_mod_static(b, (1 << 64) % q, q)
+        rep_a = w.sub64(A, w.mullo64(w.mulhi64(A, barr), q))
+        return w.add64(rep_a, t)
+
+    def _mac(self, val, j, keys, kp, rows=slice(None)):
+        """Lazy MAC sums (comp, B, n) under engine modulus j of the source
+        limbs `rows`: val (len(rows), B, n) against key column j, by the
+        context's MAC schedule."""
+        q = self.moduli[j]
+        val = val[:, None]  # (L', 1, B, n)
+        key = keys[rows, :, j, None, :]  # (L', comp, 1, n)
+        if self.mac_impl == "exact128":
+            return self._mac_close128(self._mac_sum128(val, key), q)
+        wx, Q = self._mac_term(val, key, kp[rows, :, j, None, :])
+        return self._mac_close(wx.sum(0), Q.sum(0), q)
+
     def _engine_acc(self, j, stack, t, keys, kp, skip_t_term):
         """Lazy MAC sums (comp, B, n), < 28q, for engine modulus j."""
         L, n = self.L, self.n
         B = t.shape[0]
+        if self.fused_mac:
+            # one kernel: transform + MAC; the identity limb i == j (INTT_q
+            # then NTT_q is the identity on canonical inputs) stays out of it
+            # and its term comes from t_target, by the glue.  At L == 1 that
+            # term is the decomp engine's only one: no kernel runs.
+            acc = None
+            if not (skip_t_term and L == 1):
+                acc = ntt_cuda.ntt_fwd_mac(stack, keys, kp, j, self._tabs[j],
+                                           j if skip_t_term else None)
+            if skip_t_term:
+                ident = self._mac(t[:, j, :][None], j, keys, kp, slice(j, j + 1))
+                acc = ident if acc is None else w.add64(acc, ident)
+            return acc
         val = ntt_cuda.ntt_fwd(stack, self._tabs[j]).view(L, B, n)
         if skip_t_term:
-            # identity limb i == j: INTT_q then NTT_q is the identity on
-            # canonical inputs — its MAC term comes from t_target directly
+            # identity limb: its MAC term comes from t_target directly
             # (val is this engine's own buffer: updated in place)
             val[j] = t[:, j, :]
-        val = val[:, None]  # (L, 1, B, n)
-        key = keys[:, :, j, None, :]  # (L, comp, 1, n)
-        pre = kp[:, :, j, None, :]
-        wx, Q = self._mac_term(val, key, pre)  # (L, comp, B, n)
-        return self._mac_close(wx.sum(0), Q.sum(0), self.moduli[j])
+        return self._mac(val, j, keys, kp)
 
-    def _tail_j(self, j, e, acc, res, msf):
+    def _sigma(self, e):
+        """BGV correction digit per coefficient: sigma = [(qk/2 - e) *
+        qk^{-1} + t/2]_t, computed ONCE from the INTT2 output e (canonical
+        under q_k).  sigma - t/2 is the centered multiple of qk that makes
+        the subtracted tail value divisible by t (see __init__)."""
+        t = self.plain_modulus
+        e_t = w.barrett_reduce64(e, t, self.t_barr)
+        x = w.cond_sub64(w.add64(w.sub64(self.qk_half_t, e_t), t), t)
+        u = w.mul_mod_static(x, self.inv_qk_t, t)
+        return w.add_mod(u, self.t_half, t)
+
+    def _tail_j(self, j, e, acc, res, msf, sigma=None):
         """Per-decomp-modulus tail: e (comp*B, n) canonical under q_k, lazy
         MAC sums acc (comp, B, n), caller rows res (B, comp, L, n) ->
-        (B, comp, n) output rows.  One kernel."""
+        (B, comp, n) output rows.  sigma (BGV contexts only) folds the mod-t
+        correction into e before the transform: e + sigma * (qk mod q_j)
+        < qk + q_j, which the transforms reduce on load like any u64.
+        Fused-tail contexts run one kernel; otherwise the torch composition
+        around ntt_fwd."""
         comp, n = self.comp, self.n
         B = res.shape[0]
+        q = self.moduli[j]
+        if sigma is not None:
+            e = w.add64(e, w.mul_mod_static(sigma, self._qk_mod[j], q))
         res_j = res[:, :, j, :].transpose(0, 1).reshape(comp * B, n).contiguous()
-        out = ntt_cuda.ntt_fwd_tail(
-            e, acc.view(comp * B, n), res_j, self._tabs[j], self._fix[j],
-            int(msf[j, 0]), int(msf[j, 1]),
-        )
+        acc = acc.view(comp * B, n)
+        if self.fused_tail:
+            out = ntt_cuda.ntt_fwd_tail(
+                e, acc, res_j, self._tabs[j], self._fix[j],
+                int(msf[j, 0]), int(msf[j, 1]),
+            )
+        else:
+            acc = w.barrett_reduce64(acc, q, self.q_barr[j])
+            # f = e + fix, unreduced; the transform's output is canonical
+            g = ntt_cuda.ntt_fwd(w.add64(e, self._fix[j]), self._tabs[j])
+            t1 = w.reduce_mod_factor(
+                w.add64(w.sub64(acc, g), 4 * q), q, 8
+            )
+            delta = w.mul_mod_static(t1, int(msf[j, 0]), q)
+            out = w.cond_sub64(w.add64(res_j, delta), q)
         return out.view(comp, B, n).transpose(0, 1)
+
+    def _finish(self, engine_acc, res, msf):
+        """The schedule from the engines' lazy sums on: special engine first
+        (engine K-1 + INTT2), then per decomp modulus its engine and tail.
+        engine_acc(j, skip_t_term) -> (comp, B, n); res (B, comp, L, n)."""
+        sp = self.K - 1
+        qk = self.qk
+        acc_sp = w.barrett_reduce64(engine_acc(sp, False), qk, self.q_barr[sp])
+        # INTT2 over both components in one call
+        d = ntt_cuda.ntt_inv(acc_sp.view(-1, self.n), self._tabs[sp])
+        e = w.add_mod(d, self.qk_half, qk)  # (comp*B, n)
+        sigma = self._sigma(e) if self.plain_modulus is not None else None
+
+        out = torch.empty_like(res)
+        for j in range(self.L):
+            out[:, :, j, :] = self._tail_j(j, e, engine_acc(j, True), res, msf,
+                                           sigma)
+        return out
+
+    def _intt1(self, t):
+        """INTT1 per decomp modulus (batch B each), stacked (L*B, n)."""
+        return torch.cat([
+            ntt_cuda.ntt_inv(t[:, i, :].contiguous(), self._tabs[i])
+            for i in range(self.L)
+        ])
 
     def _build(self, t, keys, kp, res, msf):
         """t: (B, L, n); keys + key precons: (L, comp, K, n);
@@ -154,29 +305,11 @@ class KeySwitchContext:
         msf: (K, 2) u64 HOST array of [reduced modswitch factor, its Harvey
         precon] rows — they become kernel scalar arguments.
         Returns (B, comp, L, n)."""
-        L, K = self.L, self.K
-        sp = K - 1
-        qk = self.qk
-
-        # INTT1 per decomp modulus (batch B each), stacked (L*B, n)
-        stack = torch.cat([
-            ntt_cuda.ntt_inv(t[:, i, :].contiguous(), self._tabs[i])
-            for i in range(L)
-        ])
-
-        # ---- special engine first (engine K-1 + INTT2) ----
-        acc_sp = self._engine_acc(sp, stack, t, keys, kp, False)
-        acc_sp = w.barrett_reduce64(acc_sp, qk, self.q_barr[sp])
-        # INTT2 over both components in one call
-        d = ntt_cuda.ntt_inv(acc_sp.view(-1, self.n), self._tabs[sp])
-        e = w.add_mod(d, self.qk_half, qk)  # (comp*B, n)
-
-        # ---- per decomp modulus: engine MAC + fused tail ----
-        out = torch.empty_like(res)
-        for j in range(L):
-            acc = self._engine_acc(j, stack, t, keys, kp, True)
-            out[:, :, j, :] = self._tail_j(j, e, acc, res, msf)
-        return out
+        stack = self._intt1(t)
+        return self._finish(
+            lambda j, skip: self._engine_acc(j, stack, t, keys, kp, skip),
+            res, msf,
+        )
 
     # -- numpy wrappers ------------------------------------------------------
 
@@ -195,24 +328,56 @@ class KeySwitchContext:
             prec[:, :, j, :] = w.precon64_np(keys[:, :, j, :], self.moduli[j])
         return prec
 
-    # key + precon tensors are large (~22 MB at 16384_6_7_7_2): bound the
-    # device memory they hold while keeping a handful of Galois keys resident
+    # key + precon tensors are large (2 * L * comp * K * n * 8 bytes a set):
+    # bound the device memory they hold while keeping a handful of Galois keys
+    # resident
     KEY_CACHE_SLOTS = 8
 
-    def device_keys(self, k_switch_keys):
+    # permuted-key caches held per Galois sigma (hoisted rotations): each
+    # distinct permutation gets its own small PinnedKeyCache (a rotation step
+    # pairs ONE sigma with ONE Galois key set, so 2 slots suffice); the dict
+    # itself is LRU-bounded to cap device memory.
+    PERM_CACHE_SLOTS = 32
+
+    def device_keys(self, k_switch_keys, hoist_perm=None):
         """Upload-once (keys, precons) int64 tensors on self.device, through
         utils/keycache.PinnedKeyCache (LRU, source-array pinning, identity +
-        content-checksum guarded)."""
+        content-checksum guarded).
+
+        hoist_perm (an (n,) NTT-domain Galois sigma, concrete numpy) stages
+        the keys PRE-PERMUTED by sigma^{-1}: the automorphism commutes with
+        the elementwise MAC, P(D_i) * k_i == P(D_i * P^{-1} k_i), so a hoisted
+        apply runs its MAC and tail on the UNPERMUTED decomposition against
+        these keys and permutes only the output (see _apply_hoisted).  The
+        permutation runs once per (sigma, key set) at stage time."""
         from ..utils.keycache import PinnedKeyCache
 
-        def _stage(src):
+        def _stage(src, inv=None):
             keys = self.prepare_keys(src)
+            if inv is not None:
+                keys = np.ascontiguousarray(keys[..., inv])
             return (w.from_u64_np(keys, self.device),
                     w.from_u64_np(self.key_precons(keys), self.device))
 
-        if not hasattr(self, "_key_cache"):
-            self._key_cache = PinnedKeyCache(self.KEY_CACHE_SLOTS, _stage)
-        return self._key_cache.get(k_switch_keys)
+        if hoist_perm is None:
+            if not hasattr(self, "_key_cache"):
+                self._key_cache = PinnedKeyCache(self.KEY_CACHE_SLOTS, _stage)
+            return self._key_cache.get(k_switch_keys)
+        p = np.asarray(hoist_perm, dtype=np.int64).reshape(self.n)
+        pid = hashlib.blake2b(p.tobytes(), digest_size=16).digest()
+        if not hasattr(self, "_key_cache_perm"):
+            self._key_cache_perm = OrderedDict()
+        cache = self._key_cache_perm.get(pid)
+        if cache is None:
+            inv = np.empty_like(p)
+            inv[p] = np.arange(self.n, dtype=np.int64)
+            cache = PinnedKeyCache(2, functools.partial(_stage, inv=inv))
+            self._key_cache_perm[pid] = cache
+            while len(self._key_cache_perm) > self.PERM_CACHE_SLOTS:
+                self._key_cache_perm.popitem(last=False)
+        else:
+            self._key_cache_perm.move_to_end(pid)
+        return cache.get(k_switch_keys)
 
     def prepare_msf4(self, modswitch_factors) -> np.ndarray:
         """(K, 2) u64 [msf, precon] rows: the reduced modswitch factor and its
@@ -235,17 +400,11 @@ class KeySwitchContext:
         the PREVIOUS batch back to the host while this one computes."""
         if self.wire_pack_enabled():
             raise NotImplementedError(f"HEXL_TPU_WIRE_PACK: {_NOT_PORTED}")
-        B = results.shape[0]
-        n, L = self.n, self.L
-        t = w.from_u64_np(
-            np.asarray(t_targets, dtype=np.uint64).reshape(B, L, n), self.device
-        )
-        r = w.from_u64_np(
-            np.asarray(results, dtype=np.uint64).reshape(B, self.comp, L, n),
-            self.device,
-        )
+        t = self.stage_target(t_targets)
+        r = self.stage_ciphertext(results)
         keys, kp = self.device_keys(k_switch_keys)
-        return self._build(t, keys, kp, r, self.prepare_msf4(modswitch_factors))
+        return self._build(t.data, keys, kp, r.data,
+                           self.prepare_msf4(modswitch_factors))
 
     def run_batch(self, results, t_targets, k_switch_keys, modswitch_factors):
         B = results.shape[0]
@@ -260,6 +419,222 @@ class KeySwitchContext:
             k_switch_keys,
             modswitch_factors,
         )[0]
+
+    # -- device-resident ciphertext handles ---------------------------------
+    #
+    # Chained HE workloads (rotate -> keyswitch -> accumulate ...) pay full
+    # host<->device staging per op through the numpy API.  A handle keeps the
+    # operand resident: run_device consumes and returns handles, so a chain
+    # of keyswitches moves host data 0 times in between.
+
+    def stage_target(self, t_targets) -> "DeviceTarget":
+        """Upload (B, L*n) u64 targets once; reusable across run_device calls."""
+        t = np.asarray(t_targets, dtype=np.uint64)
+        return DeviceTarget(
+            w.from_u64_np(t.reshape(t.shape[0], self.L, self.n), self.device),
+            self,
+        )
+
+    def stage_ciphertext(self, cts) -> "DeviceCiphertext":
+        """Upload (B, comp*L*n) u64 ciphertexts once as a device handle."""
+        c = np.asarray(cts, dtype=np.uint64)
+        return DeviceCiphertext(
+            w.from_u64_np(c.reshape(c.shape[0], self.comp, self.L, self.n),
+                          self.device),
+            self,
+        )
+
+    def _handles(self, ct, target):
+        if not isinstance(ct, DeviceCiphertext):
+            ct = self.stage_ciphertext(ct)
+        if target is not None and not isinstance(target, DeviceTarget):
+            target = self.stage_target(target)
+        assert ct.ctx is self and (target is None or target.ctx is self)
+        return ct, target
+
+    def run_device(self, ct, target, k_switch_keys, modswitch_factors
+                   ) -> "DeviceCiphertext":
+        """KeySwitch entirely on device: ct/target may be handles (stay
+        resident) or host u64 arrays (staged here).  Returns a handle; call
+        .to_host() only when the chain ends."""
+        return self.run_device_chain(ct, target, k_switch_keys,
+                                     modswitch_factors, depth=1)
+
+    def run_device_chain(self, ct, target, k_switch_keys, modswitch_factors,
+                         depth: int) -> "DeviceCiphertext":
+        """depth keyswitches with FIXED keys/target: each step's output
+        ciphertext is the next step's accumulator.  The reference compiles
+        the loop into one device program; here it is `depth` calls of the
+        device body on device tensors, queued on the stream with no host copy
+        and no synchronisation between links."""
+        return self.run_device_chain_keyed(
+            ct, target, [k_switch_keys], modswitch_factors, [0] * int(depth))
+
+    def run_device_chain_keyed(self, ct, target, key_sets, modswitch_factors,
+                               schedule) -> "DeviceCiphertext":
+        """len(schedule) keyswitches with PER-STEP keys — the rotation-chain
+        pattern.  key_sets is a list of S key sets (each the usual sequence of
+        L (comp*K*n,) u64 arrays; all stay resident via the pinned key cache),
+        schedule an int sequence where step i uses key_sets[schedule[i]]."""
+        ct, target = self._handles(ct, target)
+        sched = np.asarray(schedule, dtype=np.int32).reshape(-1)
+        assert sched.size > 0 and sched.min() >= 0
+        assert sched.max() < len(key_sets), "schedule indexes past key_sets"
+        staged = [self.device_keys(ks) for ks in key_sets]
+        msf = self.prepare_msf4(modswitch_factors)
+        cur = ct.data
+        for s in sched:
+            cur = self._build(target.data, *staged[s], cur, msf)
+        return DeviceCiphertext(cur, self)
+
+    # -- hoisted keyswitch (decompose once, apply many) ---------------------
+    #
+    # Halevi-Shoup hoisting: the PREFIX of the keyswitch — INTT1 of every
+    # decomp limb plus the forward NTT into every engine modulus, L + (L+1)*L
+    # of the L + (L+1)*L + comp*(L+1) transform rows per op — depends only on
+    # the target, not on the key or the Galois automorphism.  Computing it
+    # once and reusing it across many applies turns each further rotation of
+    # the same ciphertext into {the MAC + INTT2 + the tails + one gather}.
+
+    def _decompose(self, t):
+        """(B, L, n) canonical NTT-domain targets -> the hoisted decomposition
+        (L+1, L*B, n) over the ACTIVE engines only: plane j < L is decomp
+        modulus q_j, plane L the special modulus q_{K-1} (the moduli L..K-2
+        between them are never read by the apply):
+        D[p, i*B+b] = NTT_{q(p)}(INTT1_{q_i}(t[b, i])), canonical under q(p)
+        (the reference's planes hold lazy representatives of the same
+        residues)."""
+        stack = self._intt1(t)
+        return torch.stack([
+            ntt_cuda.ntt_fwd(stack, self._tabs[j])
+            for j in (*range(self.L), self.K - 1)
+        ])
+
+    def _apply_hoisted(self, dec, res, keys, kp, msf, index=None):
+        """Keyswitch from a hoisted decomposition dec (see _decompose).
+
+        index, an optional (n,) int64 device tensor holding an NTT-domain
+        permutation sigma, makes this an apply of the AUTOMORPHED
+        decomposition with the permutation DEFERRED to the output.  The keys
+        MUST then be pre-permuted by sigma^{-1}
+        (device_keys(..., hoist_perm=sigma)): the automorphism commutes with
+        every ring-linear stage, so
+
+            P(D_i) * k_i == P(D_i * P^{-1} k_i)
+            out == P( tail(MAC(D, P^{-1}K)) + res )
+
+        where res is the UNPERMUTED accumulation base.  One gather runs over
+        the comp*L output planes instead of (L+1)*L decomposition planes.
+        Equal to automorph-then-decompose up to the standard hoisting rounding
+        trade (the automorphism does not commute with the tail's integer lifts
+        at sign-wrapped coefficients); the result decrypts identically up to
+        noise.  With index=None the output IS bit-identical to _build: every
+        MAC input has the same residue and the tails canonicalise."""
+        L, n = self.L, self.n
+        B = res.shape[0]
+
+        def engine_acc(j, _skip):
+            plane = L if j == self.K - 1 else j
+            return self._mac(dec[plane].view(L, B, n), j, keys, kp)
+
+        out = self._finish(engine_acc, res, msf)
+        return out if index is None else out.index_select(-1, index)
+
+    def hoisted_key_stack(self, k_switch_keys, perms):
+        """Stacked sigma^{-1}-permuted (keys, precons) for a per-step hoisted
+        loop: perms is a sequence of S concrete (n,) sigmas; returns two
+        tensors shaped (S,) + key shape, step s holding
+        device_keys(keys, hoist_perm=perms[s])."""
+        sets = [
+            self.device_keys(k_switch_keys, hoist_perm=np.asarray(p))
+            for p in perms
+        ]
+        return tuple(torch.stack([s[i] for s in sets]) for i in range(2))
+
+    def hoist(self, target) -> "DeviceDecomposition":
+        """Decompose a keyswitch target ONCE for reuse across many
+        run_hoisted applies (different keys and/or Galois permutations of
+        the same target).  target: DeviceTarget or host (B, L*n) u64."""
+        if not isinstance(target, DeviceTarget):
+            target = self.stage_target(target)
+        assert target.ctx is self
+        return DeviceDecomposition(self._decompose(target.data), self)
+
+    def run_hoisted(self, dec, ct, k_switch_keys, modswitch_factors,
+                    perm=None, galois=None) -> "DeviceCiphertext":
+        """Apply a keyswitch from a hoisted decomposition, accumulating into
+        ct (handle or host (B, comp*L*n) u64).
+
+        galois, if given, is the Galois ELEMENT g (odd int mod 2n): the keys
+        stage pre-permuted by sigma_g^{-1} (cached per sigma, see
+        device_keys), the apply runs gather-free, and the deferred output
+        automorphism is one gather by the cached index of
+        galois_cuda.galois_index.  perm is the same for an arbitrary CONCRETE
+        (n,) NTT-domain permutation.  ct must be the UNPERMUTED accumulation
+        base either way; the output is sigma(ct + delta)."""
+        ct, _ = self._handles(ct, None)
+        assert dec.ctx is self
+        assert dec.batch == ct.batch, (
+            f"decomposition batch {dec.batch} != ciphertext batch {ct.batch}"
+        )
+        index = sigma = None
+        if galois is not None:
+            assert perm is None, "pass either galois or perm, not both"
+            sigma = galois_cuda.ntt_galois_sigma(self.n, int(galois))
+            index = galois_cuda.galois_index(self.n, int(galois), self.device)
+        elif perm is not None:
+            sigma = np.asarray(perm, dtype=np.int64).reshape(self.n)
+            index = torch.from_numpy(sigma).to(self.device)
+        keys, kp = self.device_keys(k_switch_keys, hoist_perm=sigma)
+        out = self._apply_hoisted(dec.data, ct.data, keys, kp,
+                                  self.prepare_msf4(modswitch_factors), index)
+        return DeviceCiphertext(out, self)
+
+
+class _Handle:
+    """One int64 tensor of u64 bit patterns on a context's device."""
+
+    def __init__(self, data: torch.Tensor, ctx: KeySwitchContext):
+        self.data = data
+        self.ctx = ctx
+
+    def synchronize(self):
+        """Wait until the device has produced the tensor (the reference's
+        block_until_ready)."""
+        if self.data.device.type == "cuda":
+            torch.cuda.synchronize(self.data.device)
+        return self
+
+
+class DeviceDecomposition(_Handle):
+    """Hoisted keyswitch prefix resident on device: (L+1, L*B, n) canonical
+    residues over the ACTIVE engines (planes 0..L-1 = decomp moduli, plane L =
+    the special modulus; see _decompose), reusable across many run_hoisted
+    calls; (L+1) * L * n * 8 bytes per op."""
+
+    @property
+    def batch(self) -> int:
+        return self.data.shape[1] // self.ctx.L
+
+
+class DeviceCiphertext(_Handle):
+    """(B, comp, L, n) ciphertext resident on device."""
+
+    @property
+    def batch(self) -> int:
+        return self.data.shape[0]
+
+    def to_host(self) -> np.ndarray:
+        """Fetch as (B, comp*L*n) u64 (the blocking device->host copy)."""
+        return w.to_u64_np(self.data).reshape(self.batch, -1)
+
+
+class DeviceTarget(_Handle):
+    """(B, L, n) keyswitch target resident on device."""
+
+    @property
+    def batch(self) -> int:
+        return self.data.shape[0]
 
 
 @functools.lru_cache(maxsize=16)
@@ -287,8 +662,6 @@ def get_context(
     plain_modulus: int | None = None, mac_impl: str = "deferred",
 ) -> KeySwitchContext:
     if twiddle_factors is not None:
-        import hashlib
-
         tw = np.ascontiguousarray(np.asarray(twiddle_factors, dtype=np.uint64))
         tw_key = hashlib.blake2b(tw.tobytes(), digest_size=16).digest()
         _TWIDDLE_STASH.pop(tw_key, None)

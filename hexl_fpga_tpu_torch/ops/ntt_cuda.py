@@ -1,6 +1,6 @@
-"""Batched negacyclic NTT / INTT / keyswitch-tail on the card.
+"""Batched negacyclic NTT / INTT / keyswitch-tail / keyswitch-engine on the card.
 
-Three wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
+Four wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
 each with its plain PyTorch version and launch counters beside it:
 
   ntt_fwd       replaces `hexl_fpga_tpu/ops/ntt_mxu_pallas.py` `_fwd_kernel`
@@ -12,6 +12,9 @@ each with its plain PyTorch version and launch counters beside it:
   ntt_fwd_tail  replaces the `raw_fwd_tail_call` kernel: `f = e + fix`,
                 forward NTT, then per element
                 `out = cond_sub(res + ReduceMod8(acc + 4q - g) * msf, q)`.
+  ntt_fwd_mac   replaces the `raw_fwd_mac_call` kernel: forward NTT of the
+                stacked source limbs (L*B, n) fused with the key MAC into
+                (comp, B, n) lazy u64 sums; `skip_i` leaves one limb out.
 
 `ntt_fwd` and `ntt_inv` are also the counterpart of the batched butterfly
 kernels of `hexl_fpga_tpu/ops/ntt_pallas.py` (`_fwd_kernel`, `_inv_kernel`:
@@ -30,8 +33,10 @@ What bounds them on an H100: by the count, bytes and multiplies are within a
 factor of two of each other.  A coefficient moves 16 bytes (32 in the tail)
 and runs log2(n)/2 Harvey butterflies of three 64x64 multiplies, about ten
 32-bit multiply-adds each; at n = 16384 against 3.35 TB/s and the card's 32-bit
-integer rate, all three come out bytes-bound, the transforms by a few percent
-only (`chip_smoke.py` computes both).  These first versions run
+integer rate, those three come out bytes-bound, the transforms by a few percent
+only, and `ntt_fwd_mac`, which writes comp*B rows for L*B read and adds comp
+lazy multiplies per coefficient, operations-bound (`chip_smoke.py` computes
+both sides for each).  These first versions run
 several times above that bound (times in `PERF.md`): what limits them is the
 butterflies' shared-memory traffic with one barrier per stage and, at the 32
 and 64 rows of the inverse and the tail, a grid that fills a quarter to a half
@@ -61,7 +66,7 @@ from . import _build, nt, twiddles, word64 as w
 # launches per kernel since the last reset; a wrapper adds one exactly where
 # it launches its kernel
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0,
-            "ntt_fwd_wide": 0, "ntt_inv_wide": 0}
+            "ntt_fwd_wide": 0, "ntt_inv_wide": 0, "ntt_fwd_mac": 0}
 _launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
 
 KERNEL_SOURCE = "ntt_kernels.cu"
@@ -229,8 +234,10 @@ def _lib():
     lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, p]
     lib.hexl_ntt_fwd_wide.argtypes = lib.hexl_ntt_fwd.argtypes
     lib.hexl_ntt_inv_wide.argtypes = lib.hexl_ntt_inv.argtypes
+    lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u, p]
     for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
-               lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide):
+               lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide,
+               lib.hexl_ntt_fwd_mac):
         fn.restype = ctypes.c_int
     return lib
 
@@ -464,6 +471,86 @@ def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
             acc.data_ptr(), res.data_ptr(), out.data_ptr(),
             tabs.tab.data_ptr(), e.shape[0], tabs.n, tabs.q, tabs.q_barr,
             int(fix), int(msf), int(msf_precon))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keyswitch engine: forward transform fused with the key MAC
+# ---------------------------------------------------------------------------
+
+
+def _check_mac(data, keys, kp, j: int, tabs: ModulusTables, skip_i,
+               name: str):
+    """Validate an engine call; returns (L, comp, K, B)."""
+    _check(data, tabs, f"{name}(data)")
+    if keys.dim() != 4 or keys.shape[3] != tabs.n or keys.shape != kp.shape:
+        raise ValueError(
+            f"{name}: keys and precons must share one (L, comp, K, {tabs.n}) "
+            f"shape, got {tuple(keys.shape)} and {tuple(kp.shape)}"
+        )
+    L, comp, K, _ = keys.shape
+    for what, x in (("keys", keys), ("precons", kp)):
+        if x.dtype != torch.int64 or not x.is_contiguous():
+            raise TypeError(f"{name}: {what} must be contiguous int64")
+        if x.device != data.device:
+            raise ValueError(f"{name}: {what} on {x.device}, data on {data.device}")
+    if data.shape[0] % L:
+        raise ValueError(
+            f"{name}: {data.shape[0]} data rows do not split into {L} source limbs"
+        )
+    if not 0 <= j < K:
+        raise ValueError(f"{name}: key column {j} outside [0, {K})")
+    if skip_i is not None:
+        if not 0 <= skip_i < L:
+            raise ValueError(f"{name}: skip_i {skip_i} outside [0, {L})")
+        if L < 2:
+            raise ValueError(
+                f"{name}: skip_i needs L >= 2 (at L == 1 the only source limb "
+                f"is the skipped one and no term is left to sum)"
+            )
+    return L, comp, K, data.shape[0] // L
+
+
+def ntt_fwd_mac_plain(data, keys, kp, j: int, tabs: ModulusTables,
+                      skip_i: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd_mac (any device): canonical forward
+    transform, Harvey lazy multiply by the key column, wrapping sum over the
+    source limbs."""
+    L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i,
+                               "ntt_fwd_mac_plain")
+    val = ntt_fwd_plain(data, tabs).view(L, 1, B, tabs.n)
+    terms = w.mul_mod_lazy(val, keys[:, :, j, None, :], kp[:, :, j, None, :],
+                           tabs.q)  # (L, comp, B, n), each in [0, 2q)
+    if skip_i is not None:
+        terms = terms[[i for i in range(L) if i != skip_i]]
+    return terms.sum(0)
+
+
+def ntt_fwd_mac(data, keys, kp, j: int, tabs: ModulusTables,
+                skip_i: int | None = None) -> torch.Tensor:
+    """Keyswitch engine for one modulus q = tabs.q, key column j:
+
+        out[k, b] = sum over i != skip_i of
+                    lazy(NTT_q(data[i*B + b] mod q) * keys[i, k, j])
+
+    data (L*B, n) int64, i-major (rows i*B .. i*B+B-1 are source limb i), any
+    u64 representative; keys, kp the whole staged (L, comp, K, n) key and
+    precon tensors (no copy of the column is made); out (comp, B, n), a
+    wrapping u64 sum of terms in [0, 2q), so out < 2*L*q.  skip_i names the
+    identity limb whose term the caller adds itself; it needs L >= 2."""
+    L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i, "ntt_fwd_mac")
+    if data.device.type == "cpu":
+        return ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i)
+    if route(tabs.n) != "row":
+        raise ValueError(
+            f"ntt_fwd_mac: no kernel serves n = {tabs.n} (a row must fit one "
+            f"block's shared memory, n <= 16384)"
+        )
+    out = torch.empty((comp, B, tabs.n), dtype=torch.int64, device=data.device)
+    _launch("ntt_fwd_mac", _lib().hexl_ntt_fwd_mac, data, data.data_ptr(),
+            keys.data_ptr(), kp.data_ptr(), out.data_ptr(),
+            tabs.tab.data_ptr(), L, B, comp, K, j,
+            -1 if skip_i is None else skip_i, tabs.n, tabs.q, tabs.q_barr)
     return out
 
 

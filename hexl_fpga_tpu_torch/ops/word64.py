@@ -170,6 +170,17 @@ def mul64_full(a, b):
     return mullo64(a, b), mulhi64(a, b)
 
 
+def add128(a, b):
+    """128-bit add of two (low 64 bits, high 64 bits) values, as mul64_full
+    returns them: wrapping add of the halves, the carry out of the low half
+    from an unsigned compare.  A carry out of the top is lost — callers bound
+    the true sum below 2^128 (`hexl_fpga_tpu/ops/word64.py` add128 on four
+    32-bit limbs)."""
+    lo = add64(a[0], b[0])
+    carry = lt64(lo, a[0]).to(torch.int64)
+    return lo, add64(add64(a[1], b[1]), carry)
+
+
 def shift128_right(lo, hi, s):
     """Low 64 bits of the 128-bit value (hi, lo) >> s, for tensors lo, hi and
     s in [0, 63]: an int, or an int64 tensor that broadcasts against lo (one

@@ -80,6 +80,7 @@ class GoldenExecutor(_Base):
                 a["k_switch_keys"],
                 a["modswitch_factors"],
                 a["twiddle_factors"],
+                plain_modulus=a.get("plain_modulus"),
             )
             np.copyto(a["result"], out.reshape(a["result"].shape))
 
@@ -186,6 +187,7 @@ class TorchExecutor(_Base):
             a["moduli"],
             a["twiddle_factors"],
             device=self.device,
+            plain_modulus=a.get("plain_modulus"),
         )
         ts = np.stack(
             [np.asarray(i.args["t_target"], dtype=np.uint64).ravel() for i in batch]

@@ -1,8 +1,11 @@
 """Where one KeySwitch batch spends its time, on the card.
 
     python -m hexl_fpga_tpu_torch.utils.profile_keyswitch [vector.json[.gz]]
+        [--schedule default|fused_mac|exact128|unfused_tail]
 
-Needs a CUDA device.  For one batch of BATCH ops at the vector's
+Needs a CUDA device.  `--schedule` picks the KeySwitchContext options whose
+device body is profiled (the API always runs the default schedule, so its
+trace is taken for `default` only).  For one batch of BATCH ops at the vector's
 configuration (default: tests/testdata/16384_6_7_7_2_0.json.gz) it prints one
 JSON object per line:
 
@@ -10,14 +13,16 @@ JSON object per line:
                (stack, host->device, device body, device->host, scatter), each
                ended by a synchronise;
   device_body  torch.profiler over the device body alone: device time by
-               kernel name (the three NTT kernels, then the largest torch
-               kernels), the busy share and the idle share of the window;
+               kernel name (the hand-written NTT kernels, then the largest
+               torch kernels), the count of launches, the busy share and the
+               idle share of the window;
   api          the same trace over 2*BATCH ops through the public API: the
                device's busy and idle share of the whole call sequence.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import sys
@@ -32,7 +37,14 @@ from hexl_fpga_tpu_torch.ops import keyswitch_cuda, word64 as w
 from hexl_fpga_tpu_torch.utils import vectors
 
 BATCH = 32
-NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "ntt_fwd_tail_kernel")
+NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "ntt_fwd_tail_kernel",
+               "ntt_fwd_mac_kernel")
+SCHEDULES = {
+    "default": {},
+    "fused_mac": {"fused_mac": True},
+    "exact128": {"mac_impl": "exact128"},
+    "unfused_tail": {"fused_tail": False},
+}
 
 
 def wall_ms(fn):
@@ -43,15 +55,20 @@ def wall_ms(fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def device_rows(prof) -> dict:
-    """Device milliseconds by kernel (or copy) name from a finished profile."""
-    rows = {}
+def _device_events(prof):
+    """(name, device microseconds, count) of every kernel and copy row."""
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
         # kernels and copies only: operator rows repeat their kernels' time
         if us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            name = ev.key.split("(")[0][:90]  # without the argument list
-            rows[name] = rows.get(name, 0.0) + us / 1e3
+            yield ev.key.split("(")[0][:90], us, ev.count  # no argument list
+
+
+def device_rows(prof) -> dict:
+    """Device milliseconds by kernel (or copy) name from a finished profile."""
+    rows = {}
+    for name, us, _ in _device_events(prof):
+        rows[name] = rows.get(name, 0.0) + us / 1e3
     return rows
 
 
@@ -64,6 +81,7 @@ def _device_table(prof, window_ms, top=8):
     return {
         "window_ms": window_ms, "device_busy_ms": busy,
         "device_idle_share": 1 - busy / window_ms,
+        "launches": sum(count for _, _, count in _device_events(prof)),
         "ntt_kernels_ms": ntt,
         "ntt_kernels_share_of_busy": sum(ntt.values()) / busy,
         "largest_other_ms": {k: v for v, k in rest[:top]},
@@ -75,20 +93,25 @@ def main(argv) -> int:
         print("profile_keyswitch: no CUDA device is available", file=sys.stderr)
         return 1
     here = os.path.dirname(os.path.abspath(__file__))
-    path = argv[1] if len(argv) > 1 else os.path.join(
-        here, "..", "..", "tests", "testdata", "16384_6_7_7_2_0.json.gz")
-    vec = vectors.load_json(path)
+    parser = argparse.ArgumentParser(prog="profile_keyswitch")
+    parser.add_argument("vector", nargs="?", default=os.path.join(
+        here, "..", "..", "tests", "testdata", "16384_6_7_7_2_0.json.gz"))
+    parser.add_argument("--schedule", choices=list(SCHEDULES), default="default")
+    args = parser.parse_args(argv[1:])
+    vec = vectors.load_json(args.vector)
     n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
     device = torch.device("cuda", 0)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "config": vec.config_name, "batch": BATCH}), flush=True)
+                      "config": vec.config_name, "batch": BATCH,
+                      "schedule": args.schedule}), flush=True)
     rng = np.random.default_rng(0)
     ts = [np.concatenate([rng.integers(0, vec.moduli[j], size=n, dtype=np.uint64)
                           for j in range(L)]) for _ in range(BATCH)]
     rs = [np.concatenate([rng.integers(0, vec.moduli[j % L], size=n, dtype=np.uint64)
                           for j in range(2 * L)]) for _ in range(BATCH)]
-    ctx = keyswitch_cuda.get_context(n, L, K, vec.rns_modulus_size, 2,
-                                     vec.moduli, vec.twiddle_factors, device=device)
+    ctx = keyswitch_cuda.KeySwitchContext(
+        n, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors,
+        device=device, **SCHEDULES[args.schedule])
     keys, kp = ctx.device_keys(vec.key_vectors)
     msf = ctx.prepare_msf4(vec.modswitch_factors)
 
@@ -112,6 +135,8 @@ def main(argv) -> int:
     with torch.profiler.profile(activities=acts) as prof:
         _, wall = wall_ms(lambda: ctx._build(t, keys, kp, r, msf))
     print(json.dumps({"device_body": _device_table(prof, wall)}), flush=True)
+    if args.schedule != "default":
+        return 0
 
     os.environ["BATCH_SIZE_KEYSWITCH"] = str(BATCH)
     os.environ["RUN_CHOICE"] = "2"

@@ -217,8 +217,6 @@ def test_not_ported_entry_points_raise(vec, runtime):
     import inspect
 
     runtime(RUN_CHOICE=1)
-    with pytest.raises(NotImplementedError, match="plain_modulus"):
-        keyswitch(vec, vec.input.copy(), plain_modulus=65537)
     assert api.acquire_GPU_resources is api.acquire_FPGA_resources
     assert api.release_GPU_resources is api.release_FPGA_resources
     names = [n for n, f in vars(japi).items()
@@ -229,6 +227,34 @@ def test_not_ported_entry_points_raise(vec, runtime):
         assert getattr(hexl, name) is getattr(api, name)
         assert (inspect.signature(getattr(api, name))
                 == inspect.signature(getattr(japi, name))), name
+
+
+@pytest.mark.parametrize("run_choice", [0, 1])
+def test_keyswitch_plain_modulus_equals_golden(vec, runtime, run_choice):
+    """The BGV tail through the API: fenced apart from the plain ops that
+    share its keys, equal to the golden BGV model."""
+    runtime(RUN_CHOICE=run_choice, BATCH_SIZE_KEYSWITCH=4)
+    want = golden.keyswitch(vec.input, vec.t_target_iter_ptr, N, L, K, L + 1, 2,
+                            vec.moduli, vec.key_vectors, vec.modswitch_factors,
+                            vec.twiddle_factors, plain_modulus=65537)
+    assert not np.array_equal(want, vec.expected_output)
+    rs = [vec.input.copy() for _ in range(3)]
+    hexl.set_worksize_KeySwitch(3)
+    keyswitch(vec, rs[0], plain_modulus=65537)
+    keyswitch(vec, rs[1])
+    keyswitch(vec, rs[2], plain_modulus=np.int64(65537))
+    assert hexl.KeySwitchCompleted()
+    np.testing.assert_array_equal(rs[0], want)
+    np.testing.assert_array_equal(rs[1], vec.expected_output)
+    np.testing.assert_array_equal(rs[2], want)
+
+
+@pytest.mark.parametrize("t", [1, 0, 2 ** 45])
+def test_keyswitch_plain_modulus_validation(vec, runtime, t):
+    runtime(RUN_CHOICE=1)
+    bad = t if t < 2 else int(vec.moduli[1]) * 3  # shares a factor with q_1
+    with pytest.raises(HexlAssertError, match="plain_modulus"):
+        keyswitch(vec, vec.input.copy(), plain_modulus=bad)
 
 
 # -- DyadicMultiply section ---------------------------------------------------

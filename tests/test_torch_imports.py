@@ -13,7 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "hexl_fpga_tpu_torch", "hexl_fpga_tpu_torch.api", "hexl_fpga_tpu_torch.config",
     "hexl_fpga_tpu_torch.convert", "hexl_fpga_tpu_torch.ops._build",
-    "hexl_fpga_tpu_torch.ops.dyadic_cuda",
+    "hexl_fpga_tpu_torch.ops.dyadic_cuda", "hexl_fpga_tpu_torch.ops.galois_cuda",
     "hexl_fpga_tpu_torch.ops.golden", "hexl_fpga_tpu_torch.ops.keyswitch_cuda",
     "hexl_fpga_tpu_torch.ops.nt", "hexl_fpga_tpu_torch.ops.ntt_cuda",
     "hexl_fpga_tpu_torch.ops.twiddles", "hexl_fpga_tpu_torch.ops.word64",
@@ -99,9 +99,11 @@ def test_cuda_launch_path_raises_without_cuda():
         "assert raises(lambda: ntt_cuda.caller_fwd_tables(1024, t.q, t.tab[0].numpy(),\n"
         "              t.tab[1].numpy(), device='cuda'))\n"
         "assert raises(lambda: dyadic_cuda.runner([17], device='cuda'))\n"
+        "assert raises(lambda: keyswitch_cuda.KeySwitchContext(1024, 1, 2, 2, 2,\n"
+        "              [1073750017, 1073872897], fused_mac=True))\n"
         "assert raises(lambda: dyadic_cuda.dyadic_multiply_np(a[0], a[0], 512, [17], 1))\n"
         "assert raises(hexl.acquire_FPGA_resources)\n"
-        "assert set(ntt_cuda.LAUNCHES.values()) == {0} and len(ntt_cuda.LAUNCHES) == 5\n"
+        "assert set(ntt_cuda.LAUNCHES.values()) == {0} and len(ntt_cuda.LAUNCHES) == 6\n"
         "assert dyadic_cuda.LAUNCHES == {'dyadic_mul': 0}\n"
         "print('raised')\n"
     )

@@ -183,9 +183,22 @@ def test_context_cache_and_twiddle_keying(vec):
     ({"fused_tail": False}, "fused_tail"),
 ])
 def test_unported_options_raise(vec, kwargs, match):
-    with pytest.raises(NotImplementedError, match=match):
-        keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli, None,
+    """These four options raised until they were ported; now each computes:
+    the frozen vector's output, or under a plain modulus the golden BGV one."""
+    c = keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli, None,
                                         device="cpu", **kwargs)
+    for option, value in kwargs.items():
+        assert getattr(c, option) == value
+    got = c.run(vec.input, vec.t_target_iter_ptr, vec.key_vectors,
+                vec.modswitch_factors)
+    if "plain_modulus" in kwargs:
+        want = golden.keyswitch(vec.input, vec.t_target_iter_ptr, 1024, 2, 3, 3,
+                                2, vec.moduli, vec.key_vectors,
+                                vec.modswitch_factors, plain_modulus=65537)
+        assert not np.array_equal(want, vec.expected_output)
+    else:
+        want = vec.expected_output
+    np.testing.assert_array_equal(got, want, err_msg=match)
 
 
 def test_wire_pack_raises(vec, ctx, monkeypatch):

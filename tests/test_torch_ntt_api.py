@@ -122,7 +122,8 @@ def test_route_by_n_and_no_kernel_beyond():
     with pytest.raises(ValueError, match="no NTT kernel serves n = 65536"):
         ntt_cuda.modulus_tables(65536, 1152921504606584833)
     assert set(ntt_cuda.LAUNCHES) == {
-        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_wide", "ntt_inv_wide"}
+        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_wide", "ntt_inv_wide",
+        "ntt_fwd_mac"}
 
 
 # -- the API section ----------------------------------------------------------

@@ -202,6 +202,34 @@ def test_mul64_full(xy):
     assert ints(lo) == from_jax((p0, p1)) and ints(hi) == from_jax((p2, p3))
 
 
+def test_add128(xy, rng):
+    """Exact 128-bit add of (low, high) pairs, carries out of the low half
+    included; against Python ints and the reference's four-limb add."""
+    xs, ys = xy
+    M128 = (1 << 128) - 1
+    a = [(h << 64) | l for l, h in zip(xs, ys)]
+    b = [(h << 64) | l for l, h in zip(reversed(xs), xs)]
+    b[:3] = [1, M128, (1 << 64) - 1]  # carry chains through both halves
+    a[:3] = [(1 << 64) - 1, 1, 1]
+    split = lambda vs: (t64([v & M64 for v in vs]), t64([v >> 64 for v in vs]))
+    lo, hi = w.add128(split(a), split(b))
+    want = [(x + y) & M128 for x, y in zip(a, b)]
+    assert ints(lo) == [v & M64 for v in want]
+    assert ints(hi) == [v >> 64 for v in want]
+    jsplit = lambda vs: jpair([v & M64 for v in vs]) + jpair([v >> 64 for v in vs])
+    r = jw.add128(jsplit(a), jsplit(b))
+    assert ints(lo) == from_jax(r[:2]) and ints(hi) == from_jax(r[2:])
+    # a sum of seven 116-bit products, as the exact128 MAC forms it
+    prods = [[rng.randrange(1 << 52) * rng.randrange(1 << 64) for _ in range(64)]
+             for _ in range(7)]
+    acc = split(prods[0])
+    for p in prods[1:]:
+        acc = w.add128(acc, split(p))
+    total = [sum(col) for col in zip(*prods)]
+    assert ints(acc[0]) == [v & M64 for v in total]
+    assert ints(acc[1]) == [v >> 64 for v in total]
+
+
 @pytest.mark.parametrize("s", [0, 1, 31, 32, 33, 62, 63])
 def test_shift128_right_static_and_per_element(xy, s):
     """s = 0 is the trap: nothing may be shifted by 64."""

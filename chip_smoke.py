@@ -7,8 +7,13 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
 
   1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/ (one nvcc per
      source, side by side),
-  2. holds each kernel against its plain PyTorch version on the card, bit for
-     bit, at the shapes its path gives it, and times both: the three keyswitch
+  2. holds `ntt_fwd` and `ntt_fwd_tail` against their plain versions over
+     n = 4 .. 16384 (at n = 16384 rows 1 .. 256), moduli of 30 and 61 bits,
+     53-bit and any-u64 input, at the wrappers' own launch shape and at every
+     other one (`split_sweep`); then each kernel against its plain PyTorch
+     version on the card, bit for bit, at the shapes its path gives it, and
+     times both (`ms`: CUDA events through the wrapper; after the paths also
+     `device_ms` by torch.profiler and `host_ms`): the three keyswitch
      transforms at n = 16384 under the frozen vector's seven moduli and at
      n = 1024; `dyadic_mul` at (32, 2, 14, 16384) on canonical operands,
      operands in [0, 4q) and random 64-bit ones, on the ramp stimulus over
@@ -74,7 +79,8 @@ from hexl_fpga_tpu_torch.ops import (
     dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles,
     word64 as w,
 )
-from hexl_fpga_tpu_torch.utils import vectors
+from hexl_fpga_tpu_torch.utils import cuda_timing, vectors
+from hexl_fpga_tpu_torch.utils.cuda_timing import event_ms as time_ms, rotating
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VECTOR = os.path.join(HERE, "tests", "testdata", "16384_6_7_7_2_0.json.gz")
@@ -113,21 +119,6 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() over reps launches, CUDA events, after one
-    warm-up call."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def larger_bound(nbytes: int, imad: int):
     """(bound_ms, bound_by): the larger of the bytes over the memory rate and
     the 32-bit multiply-adds over their peak rate."""
@@ -151,20 +142,6 @@ def dyadic_bound(B: int, M: int, n: int):
     per (item, modulus, coefficient) plus the (3, M) constants, against four
     MultMods."""
     return larger_bound(56 * B * M * n + 24 * M, B * M * n * 4 * IMAD_MULT_MOD)
-
-
-def rotating(make, nbytes: int):
-    """A source of inputs that cycles over enough copies (at least two) to
-    exceed the L2 cache, so timed reads come from device memory."""
-    copies = int(100e6 // nbytes) + 2
-    sets = [make() for _ in range(copies)]
-    state = {"i": 0}
-
-    def nxt():
-        state["i"] = (state["i"] + 1) % copies
-        return sets[state["i"]]
-
-    return nxt
 
 
 def assert_same(name, got, want):
@@ -273,11 +250,100 @@ def check_kernels(vec, device):
             # no single PyTorch call computes a modular NTT
             "library_ms": None,
         }
+        profile_later(entry, name, kern)
+        if name != "ntt_inv":  # the split kernels
+            entry["split"] = split_fields(name, rows, n)
         if name == "ntt_inv":  # INTT2 runs the same kernel over 2B rows
             entry["ms_rows_2B"] = time_ms(
                 lambda: ntt_cuda.ntt_inv(inv2_in(), tabs), 20)
         entries.append(entry)
     return entries
+
+
+# (entry, kernel name, call) whose device_ms / host_ms are taken after the
+# paths: once torch.profiler has traced the card, every later launch of the
+# process costs the host more, and the paths' launch-bound bodies would feel
+# it (PERF.md §6)
+PROFILE_LATER = []
+
+
+def profile_later(entry, name, kern):
+    PROFILE_LATER.append((entry, name, kern))
+
+
+# the kernels one wrapper call launches, where they are not just "<name>_kernel"
+CALL_KERNELS = {"ntt_inv_wide": ("ntt_inv_wide_halves_kernel", "ntt_inv_wide_last_kernel")}
+
+
+def profile_kernels(reps=20):
+    """Fill in each PROFILE_LATER entry: the host's enqueue time per call
+    (`host_ms`, all taken before the profiler first runs), then the kernels'
+    own time per call by torch.profiler (`device_ms`), over reps calls."""
+    for entry, _, kern in PROFILE_LATER:
+        entry["host_ms"] = cuda_timing.host_ms(kern, reps)
+    for entry, name, kern in PROFILE_LATER:
+        kernels = CALL_KERNELS.get(name, (f"{name}_kernel",))
+        entry["device_ms"], count = cuda_timing.device_ms(kern, reps, kernels)
+        assert count == reps * len(kernels), (name, count)  # every launch, no other
+
+
+def split_fields(name, rows, n):
+    """The parts ntt_cuda.row_split chose for (rows, n) on the card, what the
+    card made of that launch (registers, spills, threads, resident blocks per
+    SM), the waves of rows * parts blocks over the card's SMs, and the parts
+    the CPU's model of an H100 would choose (the CPU tests' choice)."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    parts = ntt_cuda.row_split(rows, n, device)
+    info = ntt_cuda.split_info(name, n, parts, device.index)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {"parts": parts, "stages_per_pass": ntt_cuda.SPLIT_R, **info,
+            "sms": sms, "waves": rows * parts / (sms * info["blocks_per_sm"]),
+            "cpu_model_parts": ntt_cuda.row_split(rows, n)}
+
+
+# the split sweep: n with its rows, moduli of 30 and 61 bits, 53-bit and
+# any-u64 input
+SWEEP_N = ((4, (1, 5)), (8, (5,)), (16, (5,)), (64, (5,)), (1024, (5,)),
+           (2048, (5,)), (4096, (5,)), (8192, (5, 64)),
+           (16384, (1, 5, 32, 64, 192, 256)))
+
+
+def check_split_sweep(device):
+    """ntt_fwd and ntt_fwd_tail against their plain versions over SWEEP_N,
+    both moduli and both inputs, at the wrappers' own split and at every
+    other parts a row of n can take; returns the count of comparisons (each
+    0)."""
+    rng = np.random.default_rng(404)
+    cases = 0
+    for n, rows_list in SWEEP_N:
+        for bits in (30, 61):
+            q = int(nt.generate_primes(1, bits, n)[0])
+            tabs = ntt_cuda.modulus_tables(n, q, device=device)
+            for rows in rows_list:
+                for in_bits in (53, 64):
+                    x = rand_u64(rng, (rows, n), in_bits, device)
+                    msf = int(rng.integers(1, q))
+                    tail = (x, rand_u64(rng, (rows, n), 64, device),
+                            w.from_u64_np(rng.integers(0, q, size=(rows, n),
+                                                       dtype=np.uint64), device),
+                            tabs, q - 12345, msf, (msf << 64) // q)
+                    want = ntt_cuda.ntt_fwd_plain(x, tabs)
+                    want_tail = ntt_cuda.ntt_fwd_tail_plain(*tail)
+                    assert_same("ntt_fwd", ntt_cuda.ntt_fwd(x, tabs), want)
+                    assert_same("ntt_fwd_tail", ntt_cuda.ntt_fwd_tail(*tail), want_tail)
+                    cases += 2
+                    if rows not in (5, 192):
+                        continue
+                    for parts in (1, 2, 4):
+                        if 2 * parts > n:
+                            continue
+                        assert_same(f"ntt_fwd parts={parts}",
+                                    ntt_cuda.ntt_fwd(x, tabs, parts), want)
+                        assert_same(f"ntt_fwd_tail parts={parts}",
+                                    ntt_cuda.ntt_fwd_tail(*tail, parts=parts),
+                                    want_tail)
+                        cases += 2
+    return cases
 
 
 def mac_bound(limbs: int, B: int, n: int, comp: int):
@@ -337,12 +403,12 @@ def check_mac_kernel(vec, device):
     skip_ms = time_ms(
         lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, 0, ctx._tabs[0], 0), 20)
     skip_b_ms, _ = mac_bound(L - 1, BATCH, n, 2)
-    return {
+    mac = lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, sp_j, tabs)
+    entry = {
         "name": "ntt_fwd_mac", "route": "cuda", "source": KERNEL_SRC,
         "replaces": "hexl_fpga_tpu/ops/ntt_mxu_pallas.py:520",
         "shape": [L * BATCH, n], "launches": None, "max_abs_err": err,
-        "ms": time_ms(
-            lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, sp_j, tabs), 20),
+        "ms": time_ms(mac, 20),
         "plain_ms": time_ms(
             lambda: ntt_cuda.ntt_fwd_mac_plain(ins(), keys, kp, sp_j, tabs), 3),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -350,6 +416,8 @@ def check_mac_kernel(vec, device):
         "library_ms": None,
         "ms_with_skipped_limb": skip_ms, "bound_ms_with_skipped_limb": skip_b_ms,
     }
+    profile_later(entry, "ntt_fwd_mac", mac)
+    return entry
 
 
 def dyadic_moduli():
@@ -408,22 +476,25 @@ def check_dyadic_kernel(device):
 
     ins = rotating(lambda: (operands(1), operands(1)), 2 * B * 2 * M * n * 8)
     b_ms, b_by = dyadic_bound(B, M, n)
-    return {
+    run = lambda: runner.run(*ins())
+    entry = {
         "name": "dyadic_mul", "route": "cuda", "source": DYADIC_SRC,
         "replaces": "hexl_fpga_tpu/ops/dyadic_pallas.py:129",
         "shape": [B, 2, M, n], "launches": None, "max_abs_err": err,
-        "ms": time_ms(lambda: runner.run(*ins()), 20),
+        "ms": time_ms(run, 20),
         "plain_ms": time_ms(
             lambda: dyadic_cuda.dyadic_multiply_plain(*ins(), runner.meta), 3),
         "bound_ms": b_ms, "bound_by": b_by,
         # no single PyTorch call computes a 64-bit modular product
         "library_ms": None,
     }
+    profile_later(entry, "dyadic_mul", run)
+    return entry
 
 
 def transform_entry(name, replaces, rows, n, extra_imad, kern, plain, err):
     b_ms, b_by = bound(rows, n, 2, extra_imad)
-    return {
+    entry = {
         "name": name, "route": "cuda", "source": KERNEL_SRC,
         "replaces": replaces, "shape": [rows, n], "launches": None,
         "max_abs_err": err,
@@ -431,6 +502,10 @@ def transform_entry(name, replaces, rows, n, extra_imad, kern, plain, err):
         "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes a modular NTT
     }
+    profile_later(entry, name, kern)
+    if name == "ntt_fwd":
+        entry["split"] = split_fields(name, rows, n)
+    return entry
 
 
 def check_standalone_transforms(device):
@@ -462,16 +537,18 @@ def check_standalone_transforms(device):
             lambda: w.from_u64_np(
                 rng.integers(0, q, size=(rows, n), dtype=np.uint64), device),
             rows * n * 8)
+        # the calls bind this cell's inputs and tables: they run again after
+        # the loop (profile_later)
+        call = lambda fn, ins=ins, tabs=tabs: lambda: fn(ins(), tabs)
         made = [
             transform_entry(
                 fwd_name, "hexl_fpga_tpu/ops/ntt_pallas.py:179", rows, n,
-                IMAD_BARRETT, lambda: ntt_cuda.ntt_fwd(ins(), tabs),
-                lambda: ntt_cuda.ntt_fwd_plain(ins(), tabs), err[fwd_name]),
+                IMAD_BARRETT, call(ntt_cuda.ntt_fwd),
+                call(ntt_cuda.ntt_fwd_plain), err[fwd_name]),
             transform_entry(
                 inv_name, "hexl_fpga_tpu/ops/ntt_pallas.py:200", rows, n,
-                IMAD_BARRETT + IMAD_LAZY_MUL // 2,
-                lambda: ntt_cuda.ntt_inv(ins(), tabs),
-                lambda: ntt_cuda.ntt_inv_plain(ins(), tabs), err[inv_name]),
+                IMAD_BARRETT + IMAD_LAZY_MUL // 2, call(ntt_cuda.ntt_inv),
+                call(ntt_cuda.ntt_inv_plain), err[inv_name]),
         ]
         (entries if wide else at_path_shape).extend(made)
     return entries, at_path_shape
@@ -936,6 +1013,9 @@ def main(rehearse: bool = False) -> int:
 
     kernels, at_path_shape = [], []
     if not rehearse:
+        t0 = time.perf_counter()
+        emit({"split_sweep": {"comparisons": check_split_sweep(device),
+                              "max_abs_err": 0, "s": time.perf_counter() - t0}})
         kernels = check_kernels(vec, device)
         kernels.append(check_mac_kernel(vec, device))
         kernels.append(check_dyadic_kernel(device))
@@ -949,6 +1029,7 @@ def main(rehearse: bool = False) -> int:
     }
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
+    profile_kernels()
     for k in kernels:  # launches summed over the paths' counted passes
         k["launches"] = sum(p["launches"].get(k["name"], 0) for p in paths.values())
         assert k["launches"] > 0, k["name"]

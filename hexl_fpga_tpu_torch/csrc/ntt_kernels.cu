@@ -20,9 +20,14 @@
 // here has 227 KB, so a row of n = 32768 (256 KB) is split in two halves.
 //
 // Layout: rows of n contiguous u64 (passed as int64 bit patterns).  `tab` is
-// a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.  One block
-// per row; the row lives in n*8 bytes of dynamic shared memory (128 KB at
-// n = 16384, opted in with cudaFuncSetAttribute).  The wide entries run two
+// a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.
+// hexl_ntt_fwd and hexl_ntt_fwd_tail run the split core of ntt_kernels.cuh
+// (fwd_split): `parts` blocks per row, each with n/parts values in dynamic
+// shared memory, several butterfly stages per barrier in registers; the
+// caller chooses parts (ntt_cuda.row_split).
+// The other entries run one block per row; the row lives in n*8 bytes of
+// dynamic shared memory (128 KB at n = 16384, opted in with
+// cudaFuncSetAttribute).  The wide entries run two
 // blocks per row, each with one half in shared memory: forward, a block does
 // the one stage that crosses the halves while it loads (it reads both halves
 // from device memory and keeps its own), then its half's log2(n) - 1 stages;
@@ -35,25 +40,31 @@
 // Bound: per coefficient the kernels move 16..32 bytes and do log2(n)/2
 // butterflies of three 64-bit multiplies (about ten 32-bit multiply-adds); by
 // that count bytes and multiplies are within a factor of two of each other.
-// What limits this first version is neither: it is the shared-memory traffic
-// of log2(n) stages with a barrier each, and one block per SM at n = 16384.
+// What limits the one-block-per-row kernels is neither: it is the
+// shared-memory traffic of log2(n) stages with a barrier each, and one block
+// per SM at n = 16384.  The split core's design against both is in
+// ntt_kernels.cuh.
 #include <cuda_runtime.h>
 
 #include "ntt_kernels.cuh"
 
 extern __shared__ u64 smem_row[];
 
-__global__ void __launch_bounds__(1024)
+// threads of a split block at most: one sub-network of 2^SPLIT_R values each
+constexpr int SPLIT_THREADS = 512;
+
+// blockIdx.x = C * row + part
+template <int C>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
 ntt_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out,
                const u64* __restrict__ tab, int n, u64 q, u64 q_barr) {
   u64* s = smem_row;
-  const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s[i] = barrett_canonical(in[base + i], q, q_barr);
-  __syncthreads();
-  fwd_stages(s, tab, tab + n, n, q, 1, 0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[base + i] = reduce4(s[i], q);
+  const int part = blockIdx.x % C, len = n / C;
+  const size_t row = (size_t)(blockIdx.x / C) * n;
+  fwd_split<C>(s, in + row, tab, tab + n, 31 - __clz(len), part, q, q_barr, 0);
+  out += row + (size_t)part * len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x)
+    out[i] = reduce4(s[spad(i)], q);
 }
 
 __global__ void __launch_bounds__(1024)
@@ -82,20 +93,20 @@ ntt_inv_kernel(const u64* __restrict__ in, u64* __restrict__ out,
 // Per element of row r:  g = NTT_q(e + fix);  a = acc mod q;
 //   t1 = ReduceMod8(a + 4q - g);  delta = t1 * msf mod q;
 //   out = cond_sub(res + delta, q)        (res < q is the caller's contract)
-// g never leaves shared memory.
-__global__ void __launch_bounds__(1024)
+// g never leaves shared memory.  Blocks as in ntt_fwd_kernel.
+template <int C>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
 ntt_fwd_tail_kernel(const u64* __restrict__ e, const u64* __restrict__ acc,
                     const u64* __restrict__ res, u64* __restrict__ out,
                     const u64* __restrict__ tab, int n, u64 q, u64 q_barr,
                     u64 fix, u64 msf, u64 msf_p) {
   u64* s = smem_row;
-  const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s[i] = barrett_canonical(e[base + i] + fix, q, q_barr);
-  __syncthreads();
-  fwd_stages(s, tab, tab + n, n, q, 1, 0);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const u64 g = reduce4(s[i], q);
+  const int part = blockIdx.x % C, len = n / C;
+  const size_t row = (size_t)(blockIdx.x / C) * n;
+  fwd_split<C>(s, e + row, tab, tab + n, 31 - __clz(len), part, q, q_barr, fix);
+  const size_t base = row + (size_t)part * len;
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const u64 g = reduce4(s[spad(i)], q);
     const u64 a = barrett_canonical(acc[base + i], q, q_barr);
     u64 t1 = a + 4 * q - g;
     t1 = cond_sub(cond_sub(cond_sub(t1, 4 * q), 2 * q), q);
@@ -208,6 +219,10 @@ ntt_inv_wide_last_kernel(u64* __restrict__ out, int n, size_t pairs, u64 q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// C entries
+// ---------------------------------------------------------------------------
+
 static int threads_for(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
 
 template <typename K>
@@ -216,14 +231,88 @@ static cudaError_t opt_in_smem(K kernel, int n) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, n * (int)sizeof(u64));
 }
 
-extern "C" int hexl_ntt_fwd(const void* in, void* out, const void* tab,
-                            int rows, int n, u64 q, u64 q_barr, void* stream) {
-  cudaError_t err = opt_in_smem(ntt_fwd_kernel, n);
+// The split kernels at C = parts in {1, 2, 4}; false for a (C, n) that no
+// instance serves (a piece must hold 2 values).
+typedef void (*FwdKernel)(const u64*, u64*, const u64*, int, u64, u64);
+typedef void (*TailKernel)(const u64*, const u64*, const u64*, u64*,
+                           const u64*, int, u64, u64, u64, u64, u64);
+
+static bool split_kernels(int C, int n, FwdKernel* f, TailKernel* t) {
+  *f = nullptr;
+  *t = nullptr;
+  if (n < 2 * C || n % C) return false;
+  switch (C) {
+    case 1: *f = ntt_fwd_kernel<1>; *t = ntt_fwd_tail_kernel<1>; break;
+    case 2: *f = ntt_fwd_kernel<2>; *t = ntt_fwd_tail_kernel<2>; break;
+    case 4: *f = ntt_fwd_kernel<4>; *t = ntt_fwd_tail_kernel<4>; break;
+  }
+  return *f != nullptr;
+}
+
+static int split_threads(int len) {
+  const int t = len >> SPLIT_R;
+  return t < 1 ? 1 : (t > SPLIT_THREADS ? SPLIT_THREADS : t);
+}
+
+static int split_smem_bytes(int len) { return (spad(len - 1) + 1) * (int)sizeof(u64); }
+
+// rows * C blocks of split_threads each
+template <typename Kernel, typename... Args>
+static int launch_split(Kernel kern, int C, int rows, int n, void* stream,
+                        Args... args) {
+  const int len = n / C, smem = split_smem_bytes(len);
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  ntt_fwd_kernel<<<rows, threads_for(n), n * sizeof(u64),
-                   (cudaStream_t)stream>>>(
-      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
+  kern<<<rows * C, split_threads(len), smem, (cudaStream_t)stream>>>(args...);
   return (int)cudaGetLastError();
+}
+
+// `parts` blocks per row
+extern "C" int hexl_ntt_fwd(const void* in, void* out, const void* tab,
+                            int rows, int n, u64 q, u64 q_barr, int parts,
+                            void* stream) {
+  FwdKernel f;
+  TailKernel t;
+  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
+  return launch_split(f, parts, rows, n, stream, (const u64*)in, (u64*)out,
+                      (const u64*)tab, n, q, q_barr);
+}
+
+extern "C" int hexl_ntt_fwd_tail(const void* e, const void* acc,
+                                 const void* res, void* out, const void* tab,
+                                 int rows, int n, u64 q, u64 q_barr, u64 fix,
+                                 u64 msf, u64 msf_p, int parts, void* stream) {
+  FwdKernel f;
+  TailKernel t;
+  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
+  return launch_split(t, parts, rows, n, stream, (const u64*)e,
+                      (const u64*)acc, (const u64*)res, (u64*)out,
+                      (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
+}
+
+// What the card made of a split kernel (tail = 0: ntt_fwd, 1: the tail) at
+// (parts, n): out = registers per thread, local (spill) bytes per thread,
+// threads per block, resident blocks per SM.
+extern "C" int hexl_ntt_split_info(int tail, int parts, int n, int* out) {
+  FwdKernel f;
+  TailKernel t;
+  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
+  const void* k = tail ? (const void*)t : (const void*)f;
+  const int len = n / parts, smem = split_smem_bytes(len);
+  const int threads = split_threads(len);
+  cudaFuncAttributes a = {};
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = threads;
+  out[3] = blocks;
+  return (int)err;
 }
 
 extern "C" int hexl_ntt_inv(const void* in, void* out, const void* tab,
@@ -236,19 +325,6 @@ extern "C" int hexl_ntt_inv(const void* in, void* out, const void* tab,
                    (cudaStream_t)stream>>>(
       (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr, inv_n, inv_n_p,
       inv_n_w, inv_n_w_p);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int hexl_ntt_fwd_tail(const void* e, const void* acc,
-                                 const void* res, void* out, const void* tab,
-                                 int rows, int n, u64 q, u64 q_barr, u64 fix,
-                                 u64 msf, u64 msf_p, void* stream) {
-  cudaError_t err = opt_in_smem(ntt_fwd_tail_kernel, n);
-  if (err != cudaSuccess) return (int)err;
-  ntt_fwd_tail_kernel<<<rows, threads_for(n), n * sizeof(u64),
-                        (cudaStream_t)stream>>>(
-      (const u64*)e, (const u64*)acc, (const u64*)res, (u64*)out,
-      (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
   return (int)cudaGetLastError();
 }
 

@@ -36,13 +36,18 @@ and runs log2(n)/2 Harvey butterflies of three 64x64 multiplies, about ten
 integer rate, those three come out bytes-bound, the transforms by a few percent
 only, and `ntt_fwd_mac`, which writes comp*B rows for L*B read and adds comp
 lazy multiplies per coefficient, operations-bound (`chip_smoke.py` computes
-both sides for each).  These first versions run
-several times above that bound (times in `PERF.md`): what limits them is the
-butterflies' shared-memory traffic with one barrier per stage and, at the 32
-and 64 rows of the inverse and the tail, a grid that fills a quarter to a half
-of the 132 SMs.  The design keeps a whole row in one block's shared memory so
-device memory is touched once each way, and passes q, floor(2^64/q), fix and
-the modswitch factor as runtime arguments so one build serves every modulus.
+both sides for each).  All run several times above that bound (times in
+`PERF.md`).  `ntt_fwd` (n <= 16384) and `ntt_fwd_tail` run the split core
+of `csrc/ntt_kernels.cuh`: a row over `parts` blocks so the grid fills the
+132 SMs, several butterfly stages per barrier in registers; `row_split`
+chooses the launch shape from (rows, n), and the plain versions split the row
+the same way, so the split's index arithmetic is tested on the CPU.  The
+others keep a row in one block with a barrier per stage: what limits them is
+that shared-memory traffic and, at the 32 and 64 rows of the inverse, a grid
+that fills a quarter to a half of the SMs.  Device memory is touched once
+each way (the split's crossing stages re-read the input from L2), and q,
+floor(2^64/q), fix and the modswitch factor are runtime arguments, so one
+build serves every modulus.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; a CUDA tensor never reaches the plain version through
@@ -221,6 +226,89 @@ def caller_inv_tables(n: int, q: int, inv_root_of_unity_powers, precon,
 
 
 # ---------------------------------------------------------------------------
+# launch shape of the split forward kernels
+# ---------------------------------------------------------------------------
+
+
+# How the forward kernels (ntt_fwd, ntt_fwd_tail) spread a row over the card:
+# `parts` blocks of n/parts values each, SPLIT_R butterfly stages per register
+# pass, at most SPLIT_THREADS threads a block (csrc/ntt_kernels.cu).
+SPLIT_R = 3
+SPLIT_THREADS = 512
+# For a CUDA tensor the card itself says how many split blocks an SM holds
+# (hexl_ntt_split_info) and how many SMs it has.  A CPU tensor, whose plain
+# version gives the same bits under every split, takes this model of an H100
+# SXM: SMs; shared memory (less 1 KB a block), threads and registers per SM;
+# the split kernels' registers per thread by parts, the larger of ntt_fwd's
+# and ntt_fwd_tail's as an H100 build reported them (PERF.md §6).
+H100_SM_COUNT = 132
+_SM_SMEM, _BLOCK_SMEM_RESERVED = 233472, 1024
+_SM_THREADS, _SM_REGS = 2048, 65536
+_SPLIT_REGS = {1: 96, 2: 106, 4: 128}
+
+
+def split_threads(n: int, parts: int) -> int:
+    """Threads of a split block (csrc/ntt_kernels.cu, split_threads)."""
+    return max(1, min(SPLIT_THREADS, (n // parts) >> SPLIT_R))
+
+
+def split_blocks_per_sm(n: int, parts: int) -> int:
+    """The model's split blocks resident on one SM, by shared memory (n/parts
+    values plus one spare every 16), threads and registers."""
+    length = n // parts
+    smem = 8 * (length + (length - 1) // 16)
+    threads = split_threads(n, parts)
+    regs = -(-threads * _SPLIT_REGS[parts] // 256) * 256  # allocation unit
+    return max(1, min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVED),
+                      _SM_THREADS // threads, _SM_REGS // regs, 32))
+
+
+def split_candidates(n: int) -> list:
+    """The parts a row of n may be split into: 1, and 2 or 4 while each piece
+    still gives a block its full threads (n/parts >= SPLIT_THREADS *
+    2^SPLIT_R values; smaller pieces make smaller blocks, not faster ones)."""
+    return [p for p in (1, 2, 4) if p == 1 or n // p >= SPLIT_THREADS << SPLIT_R]
+
+
+@functools.lru_cache(maxsize=None)
+def _split_slots(n: int, parts: int, device_index) -> int:
+    """Split blocks of (n, parts) that run at once: SMs times resident blocks
+    per SM, of CUDA device `device_index`, or of the model for None."""
+    if device_index is None:
+        return H100_SM_COUNT * split_blocks_per_sm(n, parts)
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    per_sm = min(split_info(k, n, parts, device_index)["blocks_per_sm"]
+                 for k in ("ntt_fwd", "ntt_fwd_tail"))
+    return sms * max(1, per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _row_split(rows: int, n: int, device_index) -> int:
+    def waves(parts):
+        return -(-rows * parts // _split_slots(n, parts, device_index))
+
+    cands = split_candidates(n)
+    one_wave = [p for p in cands if waves(p) == 1]
+    if one_wave:
+        return one_wave[-1]
+    return min(cands, key=lambda p: (waves(p) / p, p))
+
+
+def row_split(rows: int, n: int, device=None) -> int:
+    """The parts per row the forward kernels launch for (rows, n) on
+    `device`, among split_candidates(n): the largest C whose rows * C blocks
+    take one wave; where none does, the C whose waves end soonest if each
+    takes the time of one block of n/C values (the least ceil(waves) / C; a
+    tie goes to the smaller C, which crosses fewer stages).  A CUDA device
+    counts with its own figures, a CPU or None with the model.  Cached."""
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return _row_split(rows, n, None)
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return _row_split(rows, n, index)
+
+
+# ---------------------------------------------------------------------------
 # kernel binding
 # ---------------------------------------------------------------------------
 
@@ -229,22 +317,36 @@ def caller_inv_tables(n: int, q: int, inv_root_of_unity_powers, precon,
 def _lib():
     lib = _build.load(KERNEL_SOURCE, KERNEL_DEPS)
     p, u, i = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
-    lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, p]
+    lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, i, p]
     lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
-    lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, p]
-    lib.hexl_ntt_fwd_wide.argtypes = lib.hexl_ntt_fwd.argtypes
+    lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, i, p]
+    lib.hexl_ntt_fwd_wide.argtypes = [p, p, p, i, i, u, u, p]
     lib.hexl_ntt_inv_wide.argtypes = lib.hexl_ntt_inv.argtypes
     lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u, p]
     for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
                lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide,
-               lib.hexl_ntt_fwd_mac):
+               lib.hexl_ntt_fwd_mac, lib.hexl_ntt_split_info):
         fn.restype = ctypes.c_int
+    lib.hexl_ntt_split_info.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
 def build_kernels() -> None:
     """Compile and load the kernels now (otherwise done at first launch)."""
     _lib()
+
+
+def split_info(kernel: str, n: int, parts: int, device_index: int = 0) -> dict:
+    """What CUDA device `device_index` made of a split kernel ("ntt_fwd" or
+    "ntt_fwd_tail") at (n, parts): registers and local (spill) bytes per
+    thread, threads per block, resident blocks per SM."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device_index):
+        err = _lib().hexl_ntt_split_info(int(kernel == "ntt_fwd_tail"), parts,
+                                         n, out)
+    if err != 0:
+        raise RuntimeError(f"split_info({kernel}, {n}, {parts}): cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm"), out))
 
 
 def _check(x: torch.Tensor, tabs: ModulusTables, name: str,
@@ -308,48 +410,82 @@ def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
     return x
 
 
-def _fwd_split_plain(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
-    """The wide kernel's schedule on canonical rows (R, n): stage m = 1 across
-    the halves, then each half's stages on its own."""
-    q, h = tabs.q, tabs.n >> 1
-    W, Wp = tabs.tab[0, 1], tabs.tab[1, 1]
-    tx = w.cond_sub64(x[:, :h], 2 * q)
-    T = w.mul_mod_lazy(x[:, h:], W, Wp, q)
-    halves = ((tx + T).contiguous(), (tx + 2 * q - T).contiguous())
+def _fwd_split_plain(x: torch.Tensor, tabs: ModulusTables,
+                     parts: int) -> torch.Tensor:
+    """The split kernels' schedule on canonical rows (R, n) held as `parts`
+    contiguous pieces: the log2(parts) stages that cross the pieces (stage m
+    pairs piece c with c + parts/2m under twiddle m + c // (parts/m)), then
+    each piece's stages on its own (`csrc/ntt_kernels.cuh`, fwd_cross and
+    fwd_split; the wide kernel is parts = 2)."""
+    q = tabs.q
+    R, n = x.shape
+    pieces = list(x.view(R, parts, n // parts).unbind(1))
+    m = 1
+    while m < parts:
+        h = parts // (2 * m)
+        for c in range(parts):
+            if c & h:
+                continue
+            W, Wp = tabs.tab[0, m + c // (2 * h)], tabs.tab[1, m + c // (2 * h)]
+            tx = w.cond_sub64(pieces[c], 2 * q)
+            T = w.mul_mod_lazy(pieces[c + h], W, Wp, q)
+            pieces[c], pieces[c + h] = tx + T, tx + 2 * q - T
+        m <<= 1
     return torch.cat(
-        [_fwd_stages_plain(half, tabs, 2, part) for part, half in enumerate(halves)],
-        dim=1,
-    )
+        [_fwd_stages_plain(p.contiguous(), tabs, parts, c)
+         for c, p in enumerate(pieces)], dim=1)
 
 
 def _reduce4(x, q: int):
     return w.cond_sub64(w.cond_sub64(x, 2 * q), q)
 
 
+def _fwd_parts(x: torch.Tensor, tabs: ModulusTables, parts) -> int:
+    """The parts of a forward call: a caller's, checked, or the kernel's."""
+    if parts is not None:
+        if route(tabs.n) == "wide":
+            raise ValueError(f"n = {tabs.n} takes the wide kernel's two halves, "
+                             f"no other split")
+        if parts not in (1, 2, 4) or 2 * parts > tabs.n:
+            raise ValueError(f"parts must be 1, 2 or 4 and at most n/2, got {parts}")
+        return parts
+    if route(tabs.n) == "wide":
+        return 2
+    if x.device.type == "cuda":
+        return _row_split(x.shape[0], tabs.n, x.device.index)
+    return _row_split(x.shape[0], tabs.n, None)
+
+
 def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables,
-                  split: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ntt_fwd (any device).  `split` picks the wide
-    kernel's two-halves schedule; by default n decides, as in ntt_fwd.  Both
-    schedules give the same bits."""
+                  parts: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd (any device), on the kernel's split:
+    `parts` pieces per row, by default what ntt_fwd launches (row_split, or
+    the wide kernel's two halves).  Every split gives the same bits."""
     _check(x, tabs, "ntt_fwd_plain")
-    if split is None:
-        split = route(tabs.n) == "wide"
+    parts = _fwd_parts(x, tabs, parts)
     x = w.barrett_canonical(x, tabs.q, tabs.q_barr)
-    stages = _fwd_split_plain if split else _fwd_stages_plain
-    return _reduce4(stages(x, tabs), tabs.q)
+    x = _fwd_split_plain(x, tabs, parts) if parts > 1 else _fwd_stages_plain(x, tabs)
+    return _reduce4(x, tabs.q)
 
 
-def ntt_fwd(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+def ntt_fwd(x: torch.Tensor, tabs: ModulusTables,
+            parts: int | None = None) -> torch.Tensor:
     """Forward negacyclic NTT of each row of x (R, n) int64 under tabs.q:
-    NTT(x mod q), bit-reversed order, canonical.  x may hold any u64."""
+    NTT(x mod q), bit-reversed order, canonical.  x may hold any u64.
+    `parts` overrides row_split's blocks per row (n <= 16384 only)."""
     _check(x, tabs, "ntt_fwd")
     if x.device.type == "cpu":
-        return ntt_fwd_plain(x, tabs)
-    name = "ntt_fwd" if route(tabs.n) == "row" else "ntt_fwd_wide"
+        return ntt_fwd_plain(x, tabs, parts)
+    parts = _fwd_parts(x, tabs, parts)
     out = torch.empty_like(x)
-    _launch(name, getattr(_lib(), f"hexl_{name}"), x, x.data_ptr(),
-            out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q,
-            tabs.q_barr)
+    if route(tabs.n) == "wide":
+        _launch("ntt_fwd_wide", _lib().hexl_ntt_fwd_wide, x, x.data_ptr(),
+                out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n,
+                tabs.q, tabs.q_barr)
+    else:
+        _launch("ntt_fwd", _lib().hexl_ntt_fwd, x, x.data_ptr(), out.data_ptr(),
+                tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr,
+                parts)
     return out
 
 
@@ -387,8 +523,9 @@ def _inv_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
 
 def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables,
                   split: bool | None = None) -> torch.Tensor:
-    """Plain PyTorch version of ntt_inv (any device); `split` as in
-    ntt_fwd_plain."""
+    """Plain PyTorch version of ntt_inv (any device), on the kernel's split:
+    by default the wide kernel's two halves at n = 32768, else the whole row;
+    `split` True / False forces one or the other.  Both give the same bits."""
     _check(x, tabs, "ntt_inv_plain", forward=False)
     if split is None:
         split = route(tabs.n) == "wide"
@@ -431,13 +568,13 @@ def ntt_inv(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
 
 
 def ntt_fwd_tail_plain(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
-                       msf_precon: int) -> torch.Tensor:
-    """Plain PyTorch version of ntt_fwd_tail (any device)."""
+                       msf_precon: int, parts: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of ntt_fwd_tail (any device), on the kernel's
+    split (`parts` as in ntt_fwd_plain)."""
     for name, x in (("e", e), ("acc", acc), ("res", res)):
         _check(x, tabs, f"ntt_fwd_tail_plain({name})")
     q = tabs.q
-    f = w.barrett_canonical(w.add64(e, fix), q, tabs.q_barr)
-    g = _reduce4(_fwd_stages_plain(f, tabs), q)
+    g = ntt_fwd_plain(w.add64(e, fix), tabs, parts)
     a = w.barrett_canonical(acc, q, tabs.q_barr)
     t1 = w.reduce_mod_factor(w.add64(w.sub64(a, g), 4 * q), q, 8)
     delta = w.cond_sub64(w.mul_mod_lazy(t1, msf, msf_precon, q), q)
@@ -445,7 +582,7 @@ def ntt_fwd_tail_plain(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
 
 
 def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
-                 msf_precon: int) -> torch.Tensor:
+                 msf_precon: int, parts: int | None = None) -> torch.Tensor:
     """Keyswitch tail for one decomp modulus q, one pass over (R, n) rows:
 
         g = NTT_q(e + fix)                  e + fix may be any u64
@@ -454,23 +591,25 @@ def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
 
     msf < q with msf_precon = floor(msf << 64 / q) are runtime scalars.  The
     single conditional subtract makes out canonical exactly when res < q; a
-    caller's out-of-range res passes through as in the reference."""
+    caller's out-of-range res passes through as in the reference.  `parts`
+    as in ntt_fwd."""
     for name, x in (("e", e), ("acc", acc), ("res", res)):
         _check(x, tabs, f"ntt_fwd_tail({name})")
     if e.shape != acc.shape or e.shape != res.shape:
         raise ValueError("ntt_fwd_tail: e, acc, res must share one shape")
     if e.device.type == "cpu":
-        return ntt_fwd_tail_plain(e, acc, res, tabs, fix, msf, msf_precon)
+        return ntt_fwd_tail_plain(e, acc, res, tabs, fix, msf, msf_precon, parts)
     if route(tabs.n) != "row":
         raise ValueError(
             f"ntt_fwd_tail: no kernel serves n = {tabs.n} (a row must fit one "
             f"block's shared memory, n <= 16384)"
         )
+    parts = _fwd_parts(e, tabs, parts)
     out = torch.empty_like(e)
     _launch("ntt_fwd_tail", _lib().hexl_ntt_fwd_tail, e, e.data_ptr(),
             acc.data_ptr(), res.data_ptr(), out.data_ptr(),
             tabs.tab.data_ptr(), e.shape[0], tabs.n, tabs.q, tabs.q_barr,
-            int(fix), int(msf), int(msf_precon))
+            int(fix), int(msf), int(msf_precon), parts)
     return out
 
 

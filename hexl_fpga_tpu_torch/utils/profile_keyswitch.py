@@ -35,6 +35,7 @@ import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
 from hexl_fpga_tpu_torch.ops import keyswitch_cuda, word64 as w
 from hexl_fpga_tpu_torch.utils import vectors
+from hexl_fpga_tpu_torch.utils.cuda_timing import kernel_base
 
 BATCH = 32
 NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "ntt_fwd_tail_kernel",
@@ -76,7 +77,7 @@ def _device_table(prof, window_ms, top=8):
     """Device time by kernel from a finished profile, against the window."""
     rows = device_rows(prof)
     busy = sum(rows.values())
-    ntt = {k: v for k, v in rows.items() if k in NTT_KERNELS}
+    ntt = {k: v for k, v in rows.items() if kernel_base(k) in NTT_KERNELS}
     rest = sorted(((v, k) for k, v in rows.items() if k not in ntt), reverse=True)
     return {
         "window_ms": window_ms, "device_busy_ms": busy,

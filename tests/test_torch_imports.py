@@ -22,6 +22,8 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.utils.vectors",
     "hexl_fpga_tpu_torch.utils.profile_keyswitch",
     "hexl_fpga_tpu_torch.utils.profile_paths",
+    "hexl_fpga_tpu_torch.utils.cuda_timing",
+    "hexl_fpga_tpu_torch.utils.sweep_row_split",
 ]
 
 

@@ -7,15 +7,17 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
 
   1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/ (one nvcc per
      source, side by side),
-  2. holds `ntt_fwd` and `ntt_fwd_tail` against their plain versions over
-     n = 4 .. 16384 (at n = 16384 rows 1 .. 256), moduli of 30 and 61 bits,
-     53-bit and any-u64 input, at the wrappers' own launch shape and at every
-     other one (`split_sweep`); then each kernel against its plain PyTorch
-     version on the card, bit for bit, at the shapes its path gives it, and
-     times both (`ms`: CUDA events through the wrapper; after the paths also
-     `device_ms` by torch.profiler and `host_ms`): the three keyswitch
-     transforms at n = 16384 under the frozen vector's seven moduli and at
-     n = 1024; `dyadic_mul` at (32, 2, 14, 16384) on canonical operands,
+  2. holds the split kernels `ntt_fwd`, `ntt_fwd_tail`, `ntt_inv` and
+     `ntt_fwd_mac` against their plain versions over n = 4 .. 16384 (at
+     n = 16384 rows 1 .. 256), moduli of 30 and 61 bits, 53-bit and any-u64
+     input, at the wrappers' own launch shape and at every other one (the MAC
+     also at every cluster of blocks sharing its limbs, with no limb, the
+     first or the last skipped) (`split_sweep`); then each kernel against its
+     plain PyTorch version on the card, bit for bit, at the shapes its path
+     gives it, and times both (`ms`: CUDA events through the wrapper; after
+     the paths also `device_ms` by torch.profiler and `host_ms`): the three
+     keyswitch transforms at n = 16384 under the frozen vector's seven moduli
+     and at n = 1024; `dyadic_mul` at (32, 2, 14, 16384) on canonical operands,
      operands in [0, 4q) and random 64-bit ones, on the ramp stimulus over
      q = 10, 20, 30 at n = 64 and under q = 2, 3; the wide transforms at
      (32, 32768) under a 61-bit prime on canonical and random 64-bit input,
@@ -48,7 +50,11 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      kernel phase holds `ntt_fwd_mac` against its plain version at
      (192, 16384) under the special prime and two decomp moduli, with and
      without a skipped limb, on canonical and random 64-bit input, and at
-     n = 1024.
+     n = 1024.  The `kernels` entries of the split kernels carry their launch
+     shape from the card (`split`: parts, the MAC's cluster, registers,
+     blocks per SM, waves) at every path shape: `ntt_inv` at (32, 16384),
+     (64, 16384) (`rows_2B`) and `_INTT`'s (256, 16384), `ntt_fwd_mac` at 192
+     and 160 rows (`with_skipped_limb`).
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -251,11 +257,14 @@ def check_kernels(vec, device):
             "library_ms": None,
         }
         profile_later(entry, name, kern)
-        if name != "ntt_inv":  # the split kernels
-            entry["split"] = split_fields(name, rows, n)
+        entry["split"] = split_fields(name, rows, n)
         if name == "ntt_inv":  # INTT2 runs the same kernel over 2B rows
-            entry["ms_rows_2B"] = time_ms(
-                lambda: ntt_cuda.ntt_inv(inv2_in(), tabs), 20)
+            inv2 = lambda: ntt_cuda.ntt_inv(inv2_in(), tabs)
+            entry["rows_2B"] = {
+                "shape": [2 * BATCH, n], "ms": time_ms(inv2, 20),
+                "bound_ms": bound(2 * BATCH, n, arrays, extra)[0],
+                "split": split_fields(name, 2 * BATCH, n)}
+            profile_later(entry["rows_2B"], name, inv2)
         entries.append(entry)
     return entries
 
@@ -288,17 +297,32 @@ def profile_kernels(reps=20):
 
 
 def split_fields(name, rows, n):
-    """The parts ntt_cuda.row_split chose for (rows, n) on the card, what the
-    card made of that launch (registers, spills, threads, resident blocks per
-    SM), the waves of rows * parts blocks over the card's SMs, and the parts
-    the CPU's model of an H100 would choose (the CPU tests' choice)."""
+    """The parts ntt_cuda.row_split chose for `name` at (rows, n) on the card,
+    what the card made of that launch (registers, spills, threads, resident
+    blocks per SM), the waves of rows * parts blocks over the card's SMs, and
+    the parts the CPU's model of an H100 would choose (the CPU tests' choice)."""
     device = torch.device("cuda", torch.cuda.current_device())
-    parts = ntt_cuda.row_split(rows, n, device)
+    parts = ntt_cuda.row_split(rows, n, device, name)
     info = ntt_cuda.split_info(name, n, parts, device.index)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return {"parts": parts, "stages_per_pass": ntt_cuda.SPLIT_R, **info,
             "sms": sms, "waves": rows * parts / (sms * info["blocks_per_sm"]),
-            "cpu_model_parts": ntt_cuda.row_split(rows, n)}
+            "cpu_model_parts": ntt_cuda.row_split(rows, n, kernel=name)}
+
+
+def mac_fields(B, limbs, n):
+    """ntt_fwd_mac's launch shape for B rows summed over `limbs` limbs on the
+    card (mac_split: parts, cluster), what the card made of it, the waves of
+    its B * parts * cluster blocks, and the CPU model's choice."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    parts, cluster = ntt_cuda.mac_split(B, limbs, n, device)
+    info = ntt_cuda.split_info("ntt_fwd_mac", n, parts, device.index,
+                               cluster=cluster)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return {"parts": parts, "cluster": cluster, "limbs_per_block": -(-limbs // cluster),
+            "stages_per_pass": ntt_cuda.SPLIT_R, **info, "sms": sms,
+            "waves": B * parts * cluster / (sms * info["blocks_per_sm"]),
+            "cpu_model": list(ntt_cuda.mac_split(B, limbs, n))}
 
 
 # the split sweep: n with its rows, moduli of 30 and 61 bits, 53-bit and
@@ -308,11 +332,20 @@ SWEEP_N = ((4, (1, 5)), (8, (5,)), (16, (5,)), (64, (5,)), (1024, (5,)),
            (16384, (1, 5, 32, 64, 192, 256)))
 
 
+def mac_sweep_keys(rng, n, q, L, device):
+    """(keys, precons) of shape (L, 2, 1, n) under q, for the sweep."""
+    keys = rng.integers(0, q, size=(L, 2, 1, n), dtype=np.uint64)
+    precons = ((keys.astype(object) << 64) // q).astype(np.uint64)  # any q < 2^62
+    return w.from_u64_np(keys, device), w.from_u64_np(precons, device)
+
+
 def check_split_sweep(device):
-    """ntt_fwd and ntt_fwd_tail against their plain versions over SWEEP_N,
-    both moduli and both inputs, at the wrappers' own split and at every
-    other parts a row of n can take; returns the count of comparisons (each
-    0)."""
+    """ntt_fwd, ntt_fwd_tail, ntt_inv and ntt_fwd_mac against their plain
+    versions over SWEEP_N, both moduli and both inputs, at the wrappers' own
+    launch shape and at every other parts a row of n can take (the MAC also
+    at every cluster of blocks sharing its limbs, with no limb, the first or
+    the last skipped; 6 limbs of 32 rows at 192 rows, 5 limbs of one row at
+    5); returns the count of comparisons (each 0)."""
     rng = np.random.default_rng(404)
     cases = 0
     for n, rows_list in SWEEP_N:
@@ -329,9 +362,11 @@ def check_split_sweep(device):
                             tabs, q - 12345, msf, (msf << 64) // q)
                     want = ntt_cuda.ntt_fwd_plain(x, tabs)
                     want_tail = ntt_cuda.ntt_fwd_tail_plain(*tail)
+                    want_inv = ntt_cuda.ntt_inv_plain(x, tabs)
                     assert_same("ntt_fwd", ntt_cuda.ntt_fwd(x, tabs), want)
                     assert_same("ntt_fwd_tail", ntt_cuda.ntt_fwd_tail(*tail), want_tail)
-                    cases += 2
+                    assert_same("ntt_inv", ntt_cuda.ntt_inv(x, tabs), want_inv)
+                    cases += 3
                     if rows not in (5, 192):
                         continue
                     for parts in (1, 2, 4):
@@ -342,7 +377,35 @@ def check_split_sweep(device):
                         assert_same(f"ntt_fwd_tail parts={parts}",
                                     ntt_cuda.ntt_fwd_tail(*tail, parts=parts),
                                     want_tail)
-                        cases += 2
+                        assert_same(f"ntt_inv parts={parts}",
+                                    ntt_cuda.ntt_inv(x, tabs, parts), want_inv)
+                        cases += 3
+                    cases += check_mac_sweep(rng, x, tabs, device)
+    return cases
+
+
+def check_mac_sweep(rng, data, tabs, device):
+    """ntt_fwd_mac on `data` as 6 limbs (192 rows) or 5 (5 rows), with no
+    limb, the first or the last skipped, at its own launch shape and at every
+    parts and cluster; returns the count of comparisons."""
+    n = tabs.n
+    L = 6 if data.shape[0] == 192 else data.shape[0]
+    keys, kp = mac_sweep_keys(rng, n, tabs.q, L, device)
+    shapes = [p for p in (1, 2, 4) if 2 * p <= n and ntt_cuda.mac_chunk(n, p, 2) >= 1]
+    cases = 0
+    for skip in (None, 0, L - 1):
+        limbs = L - (skip is not None)
+        want = ntt_cuda.ntt_fwd_mac_plain(data, keys, kp, 0, tabs, skip)
+        got = ntt_cuda.ntt_fwd_mac(data, keys, kp, 0, tabs, skip)
+        assert int(got.max()) < 2 * limbs * tabs.q, "lazy sum out of range"
+        assert_same("ntt_fwd_mac", got, want)
+        cases += 1
+        for parts in shapes:
+            for cluster in sorted({1, 2, limbs}):
+                assert_same(f"ntt_fwd_mac parts={parts} cluster={cluster}",
+                            ntt_cuda.ntt_fwd_mac(data, keys, kp, 0, tabs, skip,
+                                                 parts, cluster), want)
+                cases += 1
     return cases
 
 
@@ -400,10 +463,8 @@ def check_mac_kernel(vec, device):
     ins = rotating(lambda: rand_u64(rng, (L * BATCH, n), 53, device),
                    L * BATCH * n * 8)
     b_ms, b_by = mac_bound(L, BATCH, n, 2)
-    skip_ms = time_ms(
-        lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, 0, ctx._tabs[0], 0), 20)
-    skip_b_ms, _ = mac_bound(L - 1, BATCH, n, 2)
     mac = lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, sp_j, tabs)
+    skip = lambda: ntt_cuda.ntt_fwd_mac(ins(), keys, kp, 0, ctx._tabs[0], 0)
     entry = {
         "name": "ntt_fwd_mac", "route": "cuda", "source": KERNEL_SRC,
         "replaces": "hexl_fpga_tpu/ops/ntt_mxu_pallas.py:520",
@@ -414,9 +475,15 @@ def check_mac_kernel(vec, device):
         "bound_ms": b_ms, "bound_by": b_by,
         # no single PyTorch call computes a modular NTT or a modular MAC
         "library_ms": None,
-        "ms_with_skipped_limb": skip_ms, "bound_ms_with_skipped_limb": skip_b_ms,
+        "split": mac_fields(BATCH, L, n),
+        # a decomp engine: its own limb is the caller's
+        "with_skipped_limb": {
+            "shape": [(L - 1) * BATCH, n], "ms": time_ms(skip, 20),
+            "bound_ms": mac_bound(L - 1, BATCH, n, 2)[0],
+            "split": mac_fields(BATCH, L - 1, n)},
     }
     profile_later(entry, "ntt_fwd_mac", mac)
+    profile_later(entry["with_skipped_limb"], "ntt_fwd_mac", skip)
     return entry
 
 
@@ -503,7 +570,7 @@ def transform_entry(name, replaces, rows, n, extra_imad, kern, plain, err):
         "library_ms": None,  # no single PyTorch call computes a modular NTT
     }
     profile_later(entry, name, kern)
-    if name == "ntt_fwd":
+    if name in ("ntt_fwd", "ntt_inv"):
         entry["split"] = split_fields(name, rows, n)
     return entry
 

@@ -21,14 +21,16 @@
 //
 // Layout: rows of n contiguous u64 (passed as int64 bit patterns).  `tab` is
 // a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.
-// hexl_ntt_fwd and hexl_ntt_fwd_tail run the split core of ntt_kernels.cuh
-// (fwd_split): `parts` blocks per row, each with n/parts values in dynamic
-// shared memory, several butterfly stages per barrier in registers; the
-// caller chooses parts (ntt_cuda.row_split).
-// The other entries run one block per row; the row lives in n*8 bytes of
-// dynamic shared memory (128 KB at n = 16384, opted in with
-// cudaFuncSetAttribute).  The wide entries run two
-// blocks per row, each with one half in shared memory: forward, a block does
+// The first four run a split core of ntt_kernels.cuh: `parts` blocks per
+// row, each with n/parts values in dynamic shared memory, several butterfly
+// stages per barrier in registers; the caller chooses parts
+// (ntt_cuda.row_split, ntt_cuda.mac_split).  The forward kernels (fwd_split)
+// hold contiguous pieces, the inverse (inv_split) strided ones, so that in
+// both the stages that cross the pieces are done from device memory while
+// loading.  hexl_ntt_fwd_mac sums over the source limbs in shared memory,
+// inside a block or over a thread-block cluster, and stores each output once.
+// The wide entries run two blocks per row, each with one half (128 KB at
+// n = 32768) in shared memory and a barrier per stage: forward, a block does
 // the one stage that crosses the halves while it loads (it reads both halves
 // from device memory and keeps its own), then its half's log2(n) - 1 stages;
 // inverse, the halves' stages run first and go to `out`, and a second
@@ -40,13 +42,15 @@
 // Bound: per coefficient the kernels move 16..32 bytes and do log2(n)/2
 // butterflies of three 64-bit multiplies (about ten 32-bit multiply-adds); by
 // that count bytes and multiplies are within a factor of two of each other.
-// What limits the one-block-per-row kernels is neither: it is the
+// What limits a kernel that keeps a row in one block is neither: it is the
 // shared-memory traffic of log2(n) stages with a barrier each, and one block
-// per SM at n = 16384.  The split core's design against both is in
-// ntt_kernels.cuh.
+// per SM.  The split cores' design against both is in ntt_kernels.cuh.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ntt_kernels.cuh"
+
+namespace cg = cooperative_groups;
 
 extern __shared__ u64 smem_row[];
 
@@ -67,27 +71,16 @@ ntt_fwd_kernel(const u64* __restrict__ in, u64* __restrict__ out,
     out[i] = reduce4(s[spad(i)], q);
 }
 
-__global__ void __launch_bounds__(1024)
+// blockIdx.x = C * row + part; piece part is the row's values part + C * k
+template <int C>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
 ntt_inv_kernel(const u64* __restrict__ in, u64* __restrict__ out,
                const u64* __restrict__ tab, int n, u64 q, u64 q_barr,
-               u64 inv_n, u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p) {
-  u64* s = smem_row;
-  const size_t base = (size_t)blockIdx.x * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    s[i] = barrett_canonical(in[base + i], q, q_barr);
-  __syncthreads();
-  inv_stages(s, tab + 2 * n, tab + 3 * n, n, q, 1, 0);
-  // last stage fused with the n^-1 scaling: the X half times n^-1, the Y
-  // half times n^-1 * W_last
-  const u64 twice_q = 2 * q;
-  const int half = n >> 1;
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const u64 X = s[i], Y = s[i + half];
-    const u64 tx = cond_sub(X + Y, twice_q);
-    const u64 ty = X + twice_q - Y;
-    out[base + i] = cond_sub(mul_lazy(tx, inv_n, inv_n_p, q), q);
-    out[base + i + half] = cond_sub(mul_lazy(ty, inv_n_w, inv_n_w_p, q), q);
-  }
+               InvScale sc) {
+  const int part = blockIdx.x % C, len = n / C;
+  const size_t row = (size_t)(blockIdx.x / C) * n;
+  inv_split<C>(smem_row, in + row, out + row + part, tab + 2 * n, tab + 3 * n,
+               n, 31 - __clz(len), part, q, q_barr, sc);
 }
 
 // Per element of row r:  g = NTT_q(e + fix);  a = acc mod q;
@@ -117,46 +110,84 @@ ntt_fwd_tail_kernel(const u64* __restrict__ e, const u64* __restrict__ acc,
 
 // Keyswitch engine for one modulus q (column j of the staged keys): the
 // forward NTT of source limb i of batch element b, multiplied into every key
-// component k and added to out[k, b]:
-//   out[k, b, x] += mul_lazy(NTT_q(data[i*B + b] mod q)[x], keys[i, k, j, x])
+// component k and summed over the active limbs:
+//   out[k, b, x] = sum over i != skip of
+//                  mul_lazy(NTT_q(data[i*B + b] mod q)[x], keys[i, k, j, x])
 // The counterpart on the other target walks a (batch tile, i) grid in order
-// with the accumulator block resident in fast memory across i.  Here blocks
-// run in no order and a row's `comp` accumulators (2 x 128 KB at n = 16384)
-// do not fit beside the row in a block's 227 KB, so the grid is (B, active
-// limbs), each block one transform, and the terms meet in a zeroed `out`
-// through atomicAdd on u64: wrapping 64-bit adds commute, so the sum carries
-// the same bits in any order.  The transform output never reaches device
-// memory.  reduce4 before the multiply fixes each term's bits whatever the
-// stages leave in [0, 4q), so the kernel equals its plain version bit for
-// bit; each term is in [0, 2q) and the sum below 2 * L * q.  `skip` (-1 for
-// none) is the source limb left to the caller: blockIdx.y counts the others.
-// keys / kp are the whole (L, comp, K, n) tensors; element (i, k, j, x) lies
-// at ((i * comp + k) * K + j) * n + x.
+// with the accumulator block resident in fast memory across i.  Here the sum
+// stays on chip and each output is written once, with a plain store:
+//   block (C * b + part, rank) of a cluster of S = gridDim.y blocks runs
+//   fwd_split<C> on piece `part` of the active limbs rank, rank + S, ...
+//   in turn, and adds each limb's terms for components k0 .. k0 + kc - 1 into
+//   accumulators in its shared memory beside the piece (each thread at its own
+//   positions, so no barrier but the one before the next limb overwrites the
+//   piece).  S = 1: the block stores its sums.  S > 1: after cluster.sync(),
+//   rank rho sums slice rho of the piece over the cluster's accumulators
+//   through distributed shared memory and stores it.
+// Wrapping 64-bit adds commute, so any grouping of the terms gives the same
+// bits; reduce4 before the multiply fixes each term's bits whatever the
+// stages leave in [0, 4q), so the kernel equals its plain version bit for bit;
+// each term is in [0, 2q) and the sum below 2 * L * q.  `skip` (-1 for none)
+// is the source limb left to the caller.  keys / kp are the whole
+// (L, comp, K, n) tensors; element (i, k, j, x) lies at
+// ((i * comp + k) * K + j) * n + x.  Components that do not fit shared memory
+// at once (kc < comp) take another round of transforms.
 // Bound: operations by the count (it writes comp * B rows where ntt_fwd
 // writes L * B, and adds comp lazy multiplies per coefficient; chip_smoke.py
-// computes both sides).  What it costs above ntt_fwd is comp * rows * n
-// atomics in L2 in place of rows * n plain stores.
-__global__ void __launch_bounds__(1024)
+// computes both sides).  Above its transforms it pays for the key and precon
+// columns, read again for every batch row (L2 hits after the first): a
+// quarter of its time at 16384_6_7_7_2, batch 32 (PERF.md §6).
+template <int C>
+__global__ void __launch_bounds__(SPLIT_THREADS, 1)
 ntt_fwd_mac_kernel(const u64* __restrict__ data, const u64* __restrict__ keys,
                    const u64* __restrict__ kp, u64* __restrict__ out,
                    const u64* __restrict__ tab, int n, int B, int comp, int K,
-                   int j, int skip, u64 q, u64 q_barr) {
+                   int j, int skip, int limbs, int kc, u64 q, u64 q_barr) {
   u64* s = smem_row;
-  const int b = blockIdx.x;
-  int i = blockIdx.y;
-  if (skip >= 0 && i >= skip) ++i;
-  const size_t base = ((size_t)i * B + b) * n;
-  for (int x = threadIdx.x; x < n; x += blockDim.x)
-    s[x] = barrett_canonical(data[base + x], q, q_barr);
-  __syncthreads();
-  fwd_stages(s, tab, tab + n, n, q, 1, 0);
-  for (int x = threadIdx.x; x < n; x += blockDim.x) {
-    const u64 v = reduce4(s[x], q);
-    for (int k = 0; k < comp; ++k) {
-      const size_t at = (((size_t)i * comp + k) * K + j) * n + x;
-      atomicAdd(&out[((size_t)k * B + b) * n + x],
-                mul_lazy(v, keys[at], kp[at], q));
+  const int part = blockIdx.x % C, b = blockIdx.x / C, len = n / C;
+  const int log_len = 31 - __clz(len);
+  const int S = gridDim.y, rank = blockIdx.y;
+  const size_t piece = (size_t)part * len;
+  u64* acc = s + spad(len - 1) + 1;
+  for (int k0 = 0; k0 < comp; k0 += kc) {
+    const int kn = min(kc, comp - k0);
+    for (int a = rank; a < limbs; a += S) {
+      const int i = (skip >= 0 && a >= skip) ? a + 1 : a;
+      fwd_split<C>(s, data + ((size_t)i * B + b) * n, tab, tab + n, log_len,
+                   part, q, q_barr, 0);
+      for (int k = 0; k < kn; ++k) {
+        const size_t col = (((size_t)i * comp + k0 + k) * K + j) * n + piece;
+        const u64* key = keys + col;
+        const u64* pre = kp + col;
+        u64* sum = acc + k * len;
+#pragma unroll 8  // the key reads of several positions in flight at once
+        for (int x = threadIdx.x; x < len; x += blockDim.x) {
+          const u64 t = mul_lazy(reduce4(s[spad(x)], q), __ldg(key + x),
+                                 __ldg(pre + x), q);
+          sum[x] = a == rank ? t : sum[x] + t;
+        }
+      }
+      __syncthreads();  // the next limb's transform overwrites the piece
     }
+    u64* dst = out + ((size_t)k0 * B + b) * n + piece;
+    if (S == 1) {
+      for (int k = 0; k < kn; ++k)
+        for (int x = threadIdx.x; x < len; x += blockDim.x)
+          dst[(size_t)k * B * n + x] = acc[k * len + x];
+      continue;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    const int lo = (int)((long long)len * rank / S);
+    const int hi = (int)((long long)len * (rank + 1) / S);
+    for (int k = 0; k < kn; ++k)
+      for (int x = lo + threadIdx.x; x < hi; x += blockDim.x) {
+        u64 sum = 0;
+        for (int rho = 0; rho < S; ++rho)
+          sum += cluster.map_shared_rank(acc, rho)[k * len + x];
+        dst[(size_t)k * B * n + x] = sum;
+      }
+    cluster.sync();  // no block leaves, or refills, while others read it
   }
 }
 
@@ -231,22 +262,29 @@ static cudaError_t opt_in_smem(K kernel, int n) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, n * (int)sizeof(u64));
 }
 
-// The split kernels at C = parts in {1, 2, 4}; false for a (C, n) that no
-// instance serves (a piece must hold 2 values).
-typedef void (*FwdKernel)(const u64*, u64*, const u64*, int, u64, u64);
-typedef void (*TailKernel)(const u64*, const u64*, const u64*, u64*,
-                           const u64*, int, u64, u64, u64, u64, u64);
+// The split kernels: kernel (FWD, TAIL, INV, MAC) at C = parts in {1, 2, 4};
+// nullptr for a (C, n) that no instance serves (a piece must hold 2 values).
+enum SplitKernel { FWD = 0, TAIL = 1, INV = 2, MAC = 3 };
 
-static bool split_kernels(int C, int n, FwdKernel* f, TailKernel* t) {
-  *f = nullptr;
-  *t = nullptr;
-  if (n < 2 * C || n % C) return false;
-  switch (C) {
-    case 1: *f = ntt_fwd_kernel<1>; *t = ntt_fwd_tail_kernel<1>; break;
-    case 2: *f = ntt_fwd_kernel<2>; *t = ntt_fwd_tail_kernel<2>; break;
-    case 4: *f = ntt_fwd_kernel<4>; *t = ntt_fwd_tail_kernel<4>; break;
+template <int C>
+static const void* split_instance(int kernel) {
+  switch (kernel) {
+    case FWD: return (const void*)ntt_fwd_kernel<C>;
+    case TAIL: return (const void*)ntt_fwd_tail_kernel<C>;
+    case INV: return (const void*)ntt_inv_kernel<C>;
+    case MAC: return (const void*)ntt_fwd_mac_kernel<C>;
   }
-  return *f != nullptr;
+  return nullptr;
+}
+
+static const void* split_kernel(int kernel, int C, int n) {
+  if (n < 2 * C || n % C) return nullptr;
+  switch (C) {
+    case 1: return split_instance<1>(kernel);
+    case 2: return split_instance<2>(kernel);
+    case 4: return split_instance<4>(kernel);
+  }
+  return nullptr;
 }
 
 static int split_threads(int len) {
@@ -256,15 +294,42 @@ static int split_threads(int len) {
 
 static int split_smem_bytes(int len) { return (spad(len - 1) + 1) * (int)sizeof(u64); }
 
-// rows * C blocks of split_threads each
-template <typename Kernel, typename... Args>
-static int launch_split(Kernel kern, int C, int rows, int n, void* stream,
-                        Args... args) {
-  const int len = n / C, smem = split_smem_bytes(len);
+// sm_90's dynamic shared memory per block at most (opted in)
+constexpr int MAX_BLOCK_SMEM = 232448;
+
+// MAC components whose accumulators fit beside a piece of len values (at
+// most comp; 0: not even one)
+static int mac_chunk(int len, int comp) {
+  const int fit = (MAX_BLOCK_SMEM - split_smem_bytes(len)) / (len * (int)sizeof(u64));
+  return fit < comp ? fit : comp;
+}
+
+// One launch of `kern` on `stream`: grid, split_threads(len), smem bytes of
+// dynamic shared memory, in clusters of (1, cluster) blocks if cluster > 1.
+// The argument types must be the kernel's own.
+template <typename... Args>
+static int launch(const void* kern, dim3 grid, int len, int smem, int cluster,
+                  void* stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<rows * C, split_threads(len), smem, (cudaStream_t)stream>>>(args...);
+  void* argv[] = {(void*)&args...};
+  cudaLaunchAttribute attr = {};
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = 1;
+  attr.val.clusterDim.y = cluster;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(split_threads(len));
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  if (cluster > 1) {
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelExC(&cfg, kern, argv);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -272,79 +337,100 @@ static int launch_split(Kernel kern, int C, int rows, int n, void* stream,
 extern "C" int hexl_ntt_fwd(const void* in, void* out, const void* tab,
                             int rows, int n, u64 q, u64 q_barr, int parts,
                             void* stream) {
-  FwdKernel f;
-  TailKernel t;
-  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
-  return launch_split(f, parts, rows, n, stream, (const u64*)in, (u64*)out,
-                      (const u64*)tab, n, q, q_barr);
+  const void* k = split_kernel(FWD, parts, n);
+  if (!k) return (int)cudaErrorInvalidValue;
+  return launch(k, dim3(rows * parts), n / parts, split_smem_bytes(n / parts), 1,
+                stream, (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
 }
 
 extern "C" int hexl_ntt_fwd_tail(const void* e, const void* acc,
                                  const void* res, void* out, const void* tab,
                                  int rows, int n, u64 q, u64 q_barr, u64 fix,
                                  u64 msf, u64 msf_p, int parts, void* stream) {
-  FwdKernel f;
-  TailKernel t;
-  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
-  return launch_split(t, parts, rows, n, stream, (const u64*)e,
-                      (const u64*)acc, (const u64*)res, (u64*)out,
-                      (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
-}
-
-// What the card made of a split kernel (tail = 0: ntt_fwd, 1: the tail) at
-// (parts, n): out = registers per thread, local (spill) bytes per thread,
-// threads per block, resident blocks per SM.
-extern "C" int hexl_ntt_split_info(int tail, int parts, int n, int* out) {
-  FwdKernel f;
-  TailKernel t;
-  if (!split_kernels(parts, n, &f, &t)) return (int)cudaErrorInvalidValue;
-  const void* k = tail ? (const void*)t : (const void*)f;
-  const int len = n / parts, smem = split_smem_bytes(len);
-  const int threads = split_threads(len);
-  cudaFuncAttributes a = {};
-  cudaError_t err = cudaFuncGetAttributes(&a, k);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  int blocks = 0;
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = threads;
-  out[3] = blocks;
-  return (int)err;
+  const void* k = split_kernel(TAIL, parts, n);
+  if (!k) return (int)cudaErrorInvalidValue;
+  return launch(k, dim3(rows * parts), n / parts, split_smem_bytes(n / parts), 1,
+                stream, (const u64*)e, (const u64*)acc, (const u64*)res,
+                (u64*)out, (const u64*)tab, n, q, q_barr, fix, msf, msf_p);
 }
 
 extern "C" int hexl_ntt_inv(const void* in, void* out, const void* tab,
                             int rows, int n, u64 q, u64 q_barr, u64 inv_n,
-                            u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p,
+                            u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p, int parts,
                             void* stream) {
-  cudaError_t err = opt_in_smem(ntt_inv_kernel, n);
-  if (err != cudaSuccess) return (int)err;
-  ntt_inv_kernel<<<rows, threads_for(n), n * sizeof(u64),
-                   (cudaStream_t)stream>>>(
-      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr, inv_n, inv_n_p,
-      inv_n_w, inv_n_w_p);
-  return (int)cudaGetLastError();
+  const void* k = split_kernel(INV, parts, n);
+  if (!k) return (int)cudaErrorInvalidValue;
+  const InvScale sc = {inv_n, inv_n_p, inv_n_w, inv_n_w_p};
+  return launch(k, dim3(rows * parts), n / parts, split_smem_bytes(n / parts), 1,
+                stream, (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr,
+                sc);
 }
 
-// out (comp, B, n) needs no initialisation: it is zeroed here, on the stream.
+// out (comp, B, n) needs no initialisation: every element is stored once.
 // L source limbs, of which `skip` (-1: none) is left out; L - 1 >= 1 then.
+// B * parts blocks, each in a cluster of `cluster` (1 .. min(8, active limbs))
+// that shares the limbs.
 extern "C" int hexl_ntt_fwd_mac(const void* data, const void* keys,
                                 const void* kp, void* out, const void* tab,
                                 int L, int B, int comp, int K, int j, int skip,
-                                int n, u64 q, u64 q_barr, void* stream) {
-  cudaError_t err = opt_in_smem(ntt_fwd_mac_kernel, n);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(out, 0, (size_t)comp * B * n * sizeof(u64),
-                        (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B, skip >= 0 ? L - 1 : L);
-  ntt_fwd_mac_kernel<<<grid, threads_for(n), n * sizeof(u64),
-                       (cudaStream_t)stream>>>(
-      (const u64*)data, (const u64*)keys, (const u64*)kp, (u64*)out,
-      (const u64*)tab, n, B, comp, K, j, skip, q, q_barr);
-  return (int)cudaGetLastError();
+                                int n, u64 q, u64 q_barr, int parts, int cluster,
+                                void* stream) {
+  const void* k = split_kernel(MAC, parts, n);
+  const int limbs = skip >= 0 ? L - 1 : L;
+  if (!k || cluster < 1 || cluster > 8 || cluster > limbs)
+    return (int)cudaErrorInvalidValue;
+  const int len = n / parts, kc = mac_chunk(len, comp);
+  if (kc < 1) return (int)cudaErrorInvalidValue;
+  const int smem = split_smem_bytes(len) + kc * len * (int)sizeof(u64);
+  return launch(k, dim3(B * parts, cluster), len, smem, cluster, stream,
+                (const u64*)data, (const u64*)keys, (const u64*)kp, (u64*)out,
+                (const u64*)tab, n, B, comp, K, j, skip, limbs, kc, q, q_barr);
+}
+
+// What the card made of a split kernel (FWD, TAIL, INV, MAC; the MAC with
+// `comp` components in clusters of `cluster`) at (parts, n): out = registers
+// per thread, local (spill) bytes per thread, threads per block, resident
+// blocks per SM, dynamic shared memory bytes per block, and for cluster > 1
+// the clusters the card runs at once (else 0).
+extern "C" int hexl_ntt_split_info(int kernel, int parts, int n, int comp,
+                                   int cluster, int* out) {
+  const void* k = split_kernel(kernel, parts, n);
+  if (!k) return (int)cudaErrorInvalidValue;
+  const int len = n / parts, threads = split_threads(len);
+  int smem = split_smem_bytes(len);
+  if (kernel == MAC) {
+    const int kc = mac_chunk(len, comp);
+    if (kc < 1) return (int)cudaErrorInvalidValue;
+    smem += kc * len * (int)sizeof(u64);
+  }
+  cudaFuncAttributes a = {};
+  cudaError_t err = cudaFuncGetAttributes(&a, k);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int blocks = 0, clusters = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  if (err == cudaSuccess && cluster > 1) {
+    cudaLaunchAttribute attr = {};
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = 1;
+    attr.val.clusterDim.y = cluster;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(1, cluster);
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&clusters, k, &cfg);
+  }
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = threads;
+  out[3] = blocks;
+  out[4] = smem;
+  out[5] = clusters;
+  return (int)err;
 }
 
 extern "C" int hexl_ntt_fwd_wide(const void* in, void* out, const void* tab,

@@ -1,6 +1,7 @@
 // Shared device code of the negacyclic NTT kernels: 64-bit modular
-// primitives, the in-shared-memory Harvey butterfly stages, and the split
-// forward core of ntt_fwd / ntt_fwd_tail.
+// primitives, the in-shared-memory Harvey butterfly stages of the wide pair,
+// the split forward core of ntt_fwd / ntt_fwd_tail / ntt_fwd_mac and the split
+// inverse core of ntt_inv.
 //
 // One thread block owns one polynomial row, resident in dynamic shared
 // memory for all log2(n) stages; or, for a row wider than a block's shared
@@ -68,23 +69,21 @@ __device__ __forceinline__ void fwd_stages(u64* s, const u64* __restrict__ w,
 }
 
 // Inverse (Gentleman-Sande, bit-reversed in -> natural out) stages on `len`
-// values in shared memory; values stay in [0, 2q).  With parts = 1 these are
-// the row's stages m = n/2 .. 2, and the last stage (m = 1) is left to the
-// caller, which fuses n^-1 into it.  With parts > 1 they are the stages
-// m = n/2 .. parts of piece `part` of a row of n = parts * len (all log2(len)
-// stages inside the piece); the stages that cross pieces are the caller's.
-// `w`/`wp` are the scan-order inverse root powers with the leading 1
-// (NttTables.inv / inv_precon): stage m of the whole row starts at index
-// n - 2m + 1, and group j of it is group j - part * m / parts of the piece.
+// values in shared memory, values staying in [0, 2q): all stages inside piece
+// `part` of a row of n = parts * len contiguous values (parts > 1; the wide
+// kernel's halves), stage ml here being the row's stage m = parts * ml; the
+// stages that cross pieces are the caller's.  `w`/`wp` are the scan-order
+// inverse root powers with the leading 1 (NttTables.inv / inv_precon): stage
+// m of the whole row starts at index n - 2m + 1, and group j of it is group
+// j - part * m / parts of the piece.
 __device__ __forceinline__ void inv_stages(u64* s, const u64* __restrict__ w,
                                            const u64* __restrict__ wp, int len,
                                            u64 q, int parts, int part) {
   const u64 twice_q = 2 * q;
   const int half = len >> 1;
   const int n = parts * len;
-  const int last = parts > 1 ? 1 : 2;  // smallest stage done here, in ml
   int log_t = 0;
-  for (int ml = half; ml >= last; ml >>= 1, ++log_t) {
+  for (int ml = half; ml >= 1; ml >>= 1, ++log_t) {
     const int t = 1 << log_t;
     const int root = n - 2 * parts * ml + 1 + part * ml;
     for (int i = threadIdx.x; i < half; i += blockDim.x) {
@@ -290,4 +289,229 @@ __device__ __forceinline__ void fwd_split(u64* s, const u64* __restrict__ row,
     __syncthreads();
     e0 += r;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// Split inverse core of ntt_inv.
+//
+// Replaces the inverse transform of hexl_fpga_tpu/ops/ntt_mxu_pallas.py
+// (_inv_kernel, :230, through raw_inv_call, :411).  Bound on this card: bytes
+// (16 bytes a coefficient against log2(n)/2 butterflies; chip_smoke.py
+// `bound`).  The mirror of fwd_split:
+//
+//  * Pieces.  A row is held by C = `parts` blocks (1, 2 or 4); piece c holds
+//    the row's values at c, c + C, c + 2C, ... (strided, not contiguous).  In
+//    the Gentleman-Sande network (bit-reversed in, natural out) the stages of
+//    distance t < C are the first log2(C), and each closes on an aligned
+//    group of C neighbours; every later stage pairs values of one residue
+//    class mod C, so of one piece.  Each block reads the C contiguous values
+//    at its index from device memory, reduces them, runs the crossing stages
+//    in registers (inv_cross: only the butterfly sides that lead to its own
+//    piece) and keeps its own value; the extra reads are L2 hits.
+//  * Twiddles.  A piece's stage of distance t has the row's m = n / 2t
+//    groups, and its group j is the row's group j, so it takes the row's
+//    twiddles n - 2m + 1 + j (inv_stages' index at parts = 1).
+//  * Barriers.  As in fwd_split: closed sub-networks of 2^r values in
+//    registers, r <= SPLIT_R stages per shared-memory exchange, 2^r - 1
+//    twiddles loaded once per sub-network, `spad` padding.  The load (the
+//    crossing) goes to shared memory on its own: the first pass's
+//    sub-networks are runs of 2^r neighbours, and reading them (C times
+//    over) straight from device memory left neighbouring threads 8C values
+//    apart, which measured slower.  The last pass writes device memory:
+//    ceil(log2(n/C) / SPLIT_R) passes, as many barriers.
+//  * The last stage (m = 1) lies inside a piece and stays fused with n^-1 and
+//    n^-1 * W_last; the last pass stores canonical values straight to device
+//    memory, strided by C (index C * k + c).
+//
+// The butterfly is inv_stages' own (cond_sub by 2q, mul_lazy, values in
+// [0, 2q)), so every schedule gives the bits of the one-block kernel and of
+// the plain versions.
+// ---------------------------------------------------------------------------
+
+struct InvScale {
+  u64 inv_n, inv_n_p, inv_n_w, inv_n_w_p;  // n^-1, n^-1 * W_last, precons
+};
+
+__device__ __forceinline__ void inv_butterfly(u64& x, u64& y, u64 W, u64 Wp,
+                                              u64 q) {
+  const u64 twice_q = 2 * q;
+  const u64 X = x, Y = y;
+  x = cond_sub(X + Y, twice_q);
+  y = mul_lazy(X + twice_q - Y, W, Wp, q);
+}
+
+// the row's last stage (m = 1, pairs i and i + n/2) with the n^-1 scaling:
+// the sum times n^-1, the difference times n^-1 * W_last, both canonical
+__device__ __forceinline__ void inv_last_butterfly(u64& x, u64& y,
+                                                   const InvScale& sc, u64 q) {
+  const u64 twice_q = 2 * q;
+  const u64 X = x, Y = y;
+  x = cond_sub(mul_lazy(cond_sub(X + Y, twice_q), sc.inv_n, sc.inv_n_p, q), q);
+  y = cond_sub(mul_lazy(X + twice_q - Y, sc.inv_n_w, sc.inv_n_w_p, q), q);
+}
+
+// r stages on a closed sub-network v[0, 2^r): stage jj pairs k and k + 2^jj;
+// it is a stage of the row with m0 >> jj groups, and sub-group c of it
+// (k >> (jj + 1) == c) is the row's group (g << (r - 1 - jj)) + c.  LAST: the
+// pass ends at the row's last stage, which is scaled (inv_last_butterfly).
+template <int r, bool LAST>
+__device__ __forceinline__ void inv_subnet(u64 (&v)[1 << r],
+                                           const u64* __restrict__ w,
+                                           const u64* __restrict__ wp, int n,
+                                           int m0, int g, u64 q,
+                                           const InvScale& sc) {
+#pragma unroll
+  for (int jj = 0; jj < r; ++jj) {
+    const int h = 1 << jj;
+    if (LAST && jj == r - 1) {
+#pragma unroll
+      for (int k = 0; k < h; ++k) inv_last_butterfly(v[k], v[k + h], sc, q);
+      continue;
+    }
+    const int root = n - 2 * (m0 >> jj) + 1 + (g << (r - 1 - jj));
+#pragma unroll
+    for (int c = 0; c < (1 << (r - 1 - jj)); ++c) {
+      const u64 W = __ldg(w + root + c), Wp = __ldg(wp + root + c);
+#pragma unroll
+      for (int k = 2 * h * c; k < 2 * h * c + h; ++k)
+        inv_butterfly(v[k], v[k + h], W, Wp, q);
+    }
+  }
+}
+
+// The log2(C) stages that cross the pieces, on the values x[c] at row index
+// C * i + c: stage t (the row's stage of n / 2t groups) pairs c and c + t in
+// group (C * i + c) / 2t.  Only the pairs and sides that lead to piece `part`
+// are computed: part's bit t picks the sum or the twiddled difference (a
+// branch that is uniform over the block).  Returns piece part's value.
+template <int C>
+__device__ __forceinline__ u64 inv_cross(u64 (&x)[C], const u64* __restrict__ w,
+                                         const u64* __restrict__ wp, int n,
+                                         int i, u64 q, int part) {
+  const u64 twice_q = 2 * q;
+#pragma unroll
+  for (int t = 1; t < C; t <<= 1) {
+    const int root = n - n / t + 1;  // n - 2m + 1, m = n / 2t
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if ((c & t) || (c & (t - 1)) != (part & (t - 1))) continue;
+      if (part & t) {
+        const int at = root + (C * i + c) / (2 * t);
+        x[c + t] = mul_lazy(x[c] + twice_q - x[c + t], __ldg(w + at),
+                            __ldg(wp + at), q);
+      } else {
+        x[c] = cond_sub(x[c] + x[c + t], twice_q);
+      }
+    }
+  }
+  u64 mine = x[0];
+#pragma unroll
+  for (int c = 1; c < C; ++c)
+    if (c == part) mine = x[c];
+  return mine;
+}
+
+// Where a pass leaves piece value k: shared memory, or (LAST) its canonical
+// place C * k in the row's output, `out` pointing at the piece's first value.
+template <int C, bool LAST>
+__device__ __forceinline__ void inv_put(u64* s, u64* __restrict__ out, int k,
+                                        u64 v) {
+  if (LAST)
+    out[(size_t)C * k] = v;
+  else
+    s[spad(k)] = v;
+}
+
+// The load: piece value i from the C contiguous values row[C * i ..], each
+// reduced, crossed (inv_cross), into shared memory.  Neighbouring threads
+// read neighbouring values, INV_LOADS piece values of each thread in flight
+// at once: a row is read at one block an SM, so what bounds the load is
+// device memory's latency, not its rate.  8 at C = 1 and 4 above measured
+// fastest of 4, 8 and 16 (utils/ablate_kernels.py, PERF.md §6).
+template <int C>
+__device__ __forceinline__ void inv_load(u64* s, const u64* __restrict__ row,
+                                         const u64* __restrict__ w,
+                                         const u64* __restrict__ wp, int n,
+                                         int len, int part, u64 q, u64 q_barr) {
+  constexpr int INV_LOADS = C == 1 ? 8 : 4;
+  for (int i0 = threadIdx.x; i0 < len; i0 += INV_LOADS * blockDim.x) {
+    u64 x[INV_LOADS][C];
+#pragma unroll
+    for (int u = 0; u < INV_LOADS; ++u) {
+      const int i = i0 + u * blockDim.x;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        x[u][c] = i < len ? __ldg(row + (size_t)C * i + c) : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < INV_LOADS; ++u) {
+      const int i = i0 + u * blockDim.x;
+      if (i >= len) break;
+#pragma unroll
+      for (int c = 0; c < C; ++c) x[u][c] = barrett_canonical(x[u][c], q, q_barr);
+      s[spad(i)] = inv_cross<C>(x[u], w, wp, n, i, q, part);
+    }
+  }
+}
+
+// A later pass, from shared memory: the r stages from the piece's stage e0
+// (distance 2^e0).  Sub-network u has offset o = u & (2^e0 - 1) and group
+// g = u >> e0; its values sit at (g << (e0 + r)) + (k << e0) + o.
+template <int C, int r, bool LAST>
+__device__ __forceinline__ void inv_pass(u64* s, u64* __restrict__ out,
+                                         const u64* __restrict__ w,
+                                         const u64* __restrict__ wp, int n,
+                                         int log_len, int e0, u64 q,
+                                         const InvScale& sc) {
+  for (int u = threadIdx.x; u < (1 << (log_len - r)); u += blockDim.x) {
+    const int g = u >> e0;
+    const int base = (g << (e0 + r)) + (u & ((1 << e0) - 1));
+    u64 v[1 << r];
+#pragma unroll
+    for (int k = 0; k < (1 << r); ++k) v[k] = s[spad(base + (k << e0))];
+    inv_subnet<r, LAST>(v, w, wp, n, 1 << (log_len - e0 - 1), g, q, sc);
+#pragma unroll
+    for (int k = 0; k < (1 << r); ++k) inv_put<C, LAST>(s, out, base + (k << e0), v[k]);
+  }
+}
+
+// inv_pass for a runtime r in [1, R]
+template <int C, int R, bool LAST>
+__device__ __forceinline__ void inv_pass_r(int r, u64* s, u64* out,
+                                           const u64* w, const u64* wp, int n,
+                                           int log_len, int e0, u64 q,
+                                           const InvScale& sc) {
+  if (r == R) {
+    inv_pass<C, R, LAST>(s, out, w, wp, n, log_len, e0, q, sc);
+  } else if constexpr (R > 1) {
+    inv_pass_r<C, R - 1, LAST>(r, s, out, w, wp, n, log_len, e0, q, sc);
+  }
+}
+
+// Inverse transform of piece `part` (values part, part + C, ...) of a row of
+// n = C * 2^log_len values: row[x] any u64, reduced on load; every stage, the
+// last scaled by n^-1; canonical values stored to out[C * k] (`out` at the
+// piece's first value).  `w`/`wp` are the inverse tables (NttTables.inv /
+// inv_precon).  log_len >= 1; `s` holds 2^log_len values in spad layout.
+template <int C>
+__device__ __forceinline__ void inv_split(u64* s, const u64* __restrict__ row,
+                                          u64* __restrict__ out,
+                                          const u64* __restrict__ w,
+                                          const u64* __restrict__ wp, int n,
+                                          int log_len, int part, u64 q,
+                                          u64 q_barr, const InvScale& sc) {
+  inv_load<C>(s, row, w, wp, n, 1 << log_len, part, q, q_barr);
+  __syncthreads();
+  const int passes = (log_len + SPLIT_R - 1) / SPLIT_R;
+  const int base_r = log_len / passes, longer = log_len % passes;
+  int e0 = 0;
+  for (int p = 0; p < passes - 1; ++p) {
+    const int r = base_r + (p < longer);
+    inv_pass_r<C, SPLIT_R, false>(r, s, out, w, wp, n, log_len, e0, q, sc);
+    __syncthreads();
+    e0 += r;
+  }
+  // longer < passes, so the last pass is base_r stages long
+  inv_pass_r<C, SPLIT_R, true>(base_r, s, out, w, wp, n, log_len, e0, q, sc);
 }

@@ -37,17 +37,18 @@ integer rate, those three come out bytes-bound, the transforms by a few percent
 only, and `ntt_fwd_mac`, which writes comp*B rows for L*B read and adds comp
 lazy multiplies per coefficient, operations-bound (`chip_smoke.py` computes
 both sides for each).  All run several times above that bound (times in
-`PERF.md`).  `ntt_fwd` (n <= 16384) and `ntt_fwd_tail` run the split core
+`PERF.md`).  Up to n = 16384 the four keyswitch kernels run the split cores
 of `csrc/ntt_kernels.cuh`: a row over `parts` blocks so the grid fills the
-132 SMs, several butterfly stages per barrier in registers; `row_split`
-chooses the launch shape from (rows, n), and the plain versions split the row
-the same way, so the split's index arithmetic is tested on the CPU.  The
-others keep a row in one block with a barrier per stage: what limits them is
-that shared-memory traffic and, at the 32 and 64 rows of the inverse, a grid
-that fills a quarter to a half of the SMs.  Device memory is touched once
-each way (the split's crossing stages re-read the input from L2), and q,
-floor(2^64/q), fix and the modswitch factor are runtime arguments, so one
-build serves every modulus.
+132 SMs, several butterfly stages per barrier in registers, the stages that
+cross the pieces done while loading (forward: contiguous pieces; inverse:
+strided ones).  `row_split` chooses the parts from (rows, n) and the kernel's
+own blocks per SM; `ntt_fwd_mac` sums its source limbs in shared memory over
+a cluster of blocks (`mac_split`), with no atomics, and stores each output
+once.  The plain versions split the row the same way, so the splits' index
+arithmetic is tested on the CPU.  The wide pair keeps a half row in one block
+with a barrier per stage.  Device memory is touched once each way (the
+crossing stages re-read the input from L2), and q, floor(2^64/q), fix and the
+modswitch factor are runtime arguments, so one build serves every modulus.
 
 A wrapper launches its kernel for a CUDA tensor and runs the plain version
 only for a CPU tensor; a CUDA tensor never reaches the plain version through
@@ -226,25 +227,33 @@ def caller_inv_tables(n: int, q: int, inv_root_of_unity_powers, precon,
 
 
 # ---------------------------------------------------------------------------
-# launch shape of the split forward kernels
+# launch shape of the split kernels
 # ---------------------------------------------------------------------------
 
 
-# How the forward kernels (ntt_fwd, ntt_fwd_tail) spread a row over the card:
-# `parts` blocks of n/parts values each, SPLIT_R butterfly stages per register
-# pass, at most SPLIT_THREADS threads a block (csrc/ntt_kernels.cu).
+# How the split kernels (ntt_fwd, ntt_fwd_tail, ntt_inv, ntt_fwd_mac) spread a
+# row over the card: `parts` blocks of n/parts values each, SPLIT_R butterfly
+# stages per register pass, at most SPLIT_THREADS threads a block
+# (csrc/ntt_kernels.cu).
 SPLIT_R = 3
 SPLIT_THREADS = 512
+SPLIT_KERNELS = ("ntt_fwd", "ntt_fwd_tail", "ntt_inv", "ntt_fwd_mac")
 # For a CUDA tensor the card itself says how many split blocks an SM holds
 # (hexl_ntt_split_info) and how many SMs it has.  A CPU tensor, whose plain
 # version gives the same bits under every split, takes this model of an H100
 # SXM: SMs; shared memory (less 1 KB a block), threads and registers per SM;
-# the split kernels' registers per thread by parts, the larger of ntt_fwd's
-# and ntt_fwd_tail's as an H100 build reported them (PERF.md §6).
+# the split kernels' registers per thread by parts as an H100 build reported
+# them (PERF.md §6; the forward pair's is the larger of the two).
 H100_SM_COUNT = 132
 _SM_SMEM, _BLOCK_SMEM_RESERVED = 233472, 1024
 _SM_THREADS, _SM_REGS = 2048, 65536
-_SPLIT_REGS = {1: 96, 2: 106, 4: 128}
+_FWD_REGS = {1: 96, 2: 106, 4: 128}
+_SPLIT_REGS = {"ntt_fwd": _FWD_REGS, "ntt_fwd_tail": _FWD_REGS,
+               "ntt_inv": {1: 88, 2: 90, 4: 94},
+               "ntt_fwd_mac": {1: 128, 2: 128, 4: 128}}
+# a block's dynamic shared memory at most on sm_90 (opted in), in bytes
+_BLOCK_SMEM = 232448
+MAC_COMPONENTS = 2  # KeySwitch's key components: the MAC's shape by default
 
 
 def split_threads(n: int, parts: int) -> int:
@@ -252,60 +261,110 @@ def split_threads(n: int, parts: int) -> int:
     return max(1, min(SPLIT_THREADS, (n // parts) >> SPLIT_R))
 
 
-def split_blocks_per_sm(n: int, parts: int) -> int:
-    """The model's split blocks resident on one SM, by shared memory (n/parts
-    values plus one spare every 16), threads and registers."""
+def _piece_smem(length: int) -> int:
+    """Bytes of a piece of `length` values in shared memory (one spare u64
+    every 16, csrc/ntt_kernels.cuh spad)."""
+    return 8 * (length + (length - 1) // 16)
+
+
+def mac_chunk(n: int, parts: int, comp: int) -> int:
+    """Key components whose accumulators ntt_fwd_mac keeps beside a piece of
+    n/parts values in one block's shared memory (at most comp; 0 if not even
+    one fits; csrc/ntt_kernels.cu, mac_chunk)."""
     length = n // parts
-    smem = 8 * (length + (length - 1) // 16)
+    return min(comp, (_BLOCK_SMEM - _piece_smem(length)) // (8 * length))
+
+
+def split_smem(kernel: str, n: int, parts: int) -> int:
+    """Dynamic shared memory bytes of one block of `kernel` at (n, parts)
+    (ntt_fwd_mac with MAC_COMPONENTS components)."""
+    smem = _piece_smem(n // parts)
+    if kernel == "ntt_fwd_mac":
+        smem += 8 * (n // parts) * mac_chunk(n, parts, MAC_COMPONENTS)
+    return smem
+
+
+def split_blocks_per_sm(n: int, parts: int, kernel: str = "ntt_fwd") -> int:
+    """The model's blocks of `kernel` resident on one SM, by shared memory,
+    threads and registers."""
     threads = split_threads(n, parts)
-    regs = -(-threads * _SPLIT_REGS[parts] // 256) * 256  # allocation unit
-    return max(1, min(_SM_SMEM // (smem + _BLOCK_SMEM_RESERVED),
-                      _SM_THREADS // threads, _SM_REGS // regs, 32))
+    regs = -(-threads * _SPLIT_REGS[kernel][parts] // 256) * 256  # allocation unit
+    return max(1, min(
+        _SM_SMEM // (split_smem(kernel, n, parts) + _BLOCK_SMEM_RESERVED),
+        _SM_THREADS // threads, _SM_REGS // regs, 32))
 
 
-def split_candidates(n: int) -> list:
+def split_candidates(n: int, kernel: str = "ntt_fwd") -> list:
     """The parts a row of n may be split into: 1, and 2 or 4 while each piece
     still gives a block its full threads (n/parts >= SPLIT_THREADS *
-    2^SPLIT_R values; smaller pieces make smaller blocks, not faster ones)."""
-    return [p for p in (1, 2, 4) if p == 1 or n // p >= SPLIT_THREADS << SPLIT_R]
+    2^SPLIT_R values; smaller pieces make smaller blocks, not faster ones);
+    for ntt_fwd_mac only those whose piece leaves room for one component's
+    accumulators."""
+    cands = [p for p in (1, 2, 4) if p == 1 or n // p >= SPLIT_THREADS << SPLIT_R]
+    if kernel == "ntt_fwd_mac":
+        cands = [p for p in cands if mac_chunk(n, p, 1) >= 1]
+    return cands
 
 
 @functools.lru_cache(maxsize=None)
-def _split_slots(n: int, parts: int, device_index) -> int:
-    """Split blocks of (n, parts) that run at once: SMs times resident blocks
-    per SM, of CUDA device `device_index`, or of the model for None."""
+def _split_slots(n: int, parts: int, device_index, kernel: str) -> int:
+    """Blocks of `kernel` at (n, parts) that run at once: SMs times resident
+    blocks per SM, of CUDA device `device_index`, or of the model for None."""
     if device_index is None:
-        return H100_SM_COUNT * split_blocks_per_sm(n, parts)
+        return H100_SM_COUNT * split_blocks_per_sm(n, parts, kernel)
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    per_sm = min(split_info(k, n, parts, device_index)["blocks_per_sm"]
-                 for k in ("ntt_fwd", "ntt_fwd_tail"))
+    per_sm = split_info(kernel, n, parts, device_index)["blocks_per_sm"]
     return sms * max(1, per_sm)
 
 
 @functools.lru_cache(maxsize=None)
-def _row_split(rows: int, n: int, device_index) -> int:
+def _row_split(rows: int, n: int, device_index, kernel: str) -> int:
     def waves(parts):
-        return -(-rows * parts // _split_slots(n, parts, device_index))
+        return -(-rows * parts // _split_slots(n, parts, device_index, kernel))
 
-    cands = split_candidates(n)
+    cands = split_candidates(n, kernel)
     one_wave = [p for p in cands if waves(p) == 1]
     if one_wave:
         return one_wave[-1]
     return min(cands, key=lambda p: (waves(p) / p, p))
 
 
-def row_split(rows: int, n: int, device=None) -> int:
-    """The parts per row the forward kernels launch for (rows, n) on
-    `device`, among split_candidates(n): the largest C whose rows * C blocks
-    take one wave; where none does, the C whose waves end soonest if each
-    takes the time of one block of n/C values (the least ceil(waves) / C; a
-    tie goes to the smaller C, which crosses fewer stages).  A CUDA device
-    counts with its own figures, a CPU or None with the model.  Cached."""
+def _device_index(device):
+    """None for a CPU (the model), else the CUDA device's index."""
     device = torch.device("cpu" if device is None else device)
     if device.type != "cuda":
-        return _row_split(rows, n, None)
-    index = torch.cuda.current_device() if device.index is None else device.index
-    return _row_split(rows, n, index)
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+def row_split(rows: int, n: int, device=None, kernel: str = "ntt_fwd") -> int:
+    """The parts per row `kernel` (a split kernel) launches for (rows, n) on
+    `device`, among split_candidates(n, kernel): the largest C whose rows * C
+    blocks take one wave; where none does, the C whose waves end soonest if
+    each takes the time of one block of n/C values (the least ceil(waves) /
+    C; a tie goes to the smaller C, which crosses fewer stages).  The waves
+    count the kernel's own resident blocks per SM: a CUDA device's figures, a
+    CPU's or None's the model's.  Cached."""
+    return _row_split(rows, n, _device_index(device), kernel)
+
+
+# ntt_fwd_mac's blocks that share a row's source limbs: a cluster of two,
+# each summing every other limb, the pair's sums added through distributed
+# shared memory.  Measured against one block that sums every limb (one
+# cluster of 1) and one block per limb (a cluster of all of them) at the
+# fused-MAC body's shapes, it was the fastest (PERF.md §6): pairs fill all
+# 132 SMs where clusters of 3, 5 or 6 blocks of 200 KB leave 15 to 30 idle,
+# and a lone block needs C = 4 to fill the card, whose crossing costs more.
+MAC_CLUSTER = 2
+
+
+def mac_split(B: int, limbs: int, n: int, device=None) -> tuple:
+    """(parts, cluster) of ntt_fwd_mac for B batch rows summed over `limbs`
+    source limbs on `device`: clusters of MAC_CLUSTER blocks (fewer if fewer
+    limbs), and the parts row_split gives that many blocks' rows (B times
+    the cluster) of this kernel.  Cached with row_split."""
+    cluster = min(MAC_CLUSTER, limbs)
+    return row_split(B * cluster, n, device, "ntt_fwd_mac"), cluster
 
 
 # ---------------------------------------------------------------------------
@@ -318,16 +377,17 @@ def _lib():
     lib = _build.load(KERNEL_SOURCE, KERNEL_DEPS)
     p, u, i = ctypes.c_void_p, ctypes.c_uint64, ctypes.c_int
     lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, i, p]
-    lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
+    lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, i, p]
     lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, i, p]
     lib.hexl_ntt_fwd_wide.argtypes = [p, p, p, i, i, u, u, p]
-    lib.hexl_ntt_inv_wide.argtypes = lib.hexl_ntt_inv.argtypes
-    lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u, p]
+    lib.hexl_ntt_inv_wide.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
+    lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u,
+                                     i, i, p]
     for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
                lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide,
                lib.hexl_ntt_fwd_mac, lib.hexl_ntt_split_info):
         fn.restype = ctypes.c_int
-    lib.hexl_ntt_split_info.argtypes = [i, i, i, ctypes.POINTER(ctypes.c_int)]
+    lib.hexl_ntt_split_info.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -336,17 +396,21 @@ def build_kernels() -> None:
     _lib()
 
 
-def split_info(kernel: str, n: int, parts: int, device_index: int = 0) -> dict:
-    """What CUDA device `device_index` made of a split kernel ("ntt_fwd" or
-    "ntt_fwd_tail") at (n, parts): registers and local (spill) bytes per
-    thread, threads per block, resident blocks per SM."""
-    out = (ctypes.c_int * 4)()
+def split_info(kernel: str, n: int, parts: int, device_index: int = 0,
+               cluster: int = 1) -> dict:
+    """What CUDA device `device_index` made of a split kernel (one of
+    SPLIT_KERNELS; ntt_fwd_mac with MAC_COMPONENTS components in clusters of
+    `cluster` blocks) at (n, parts): registers and local (spill) bytes per
+    thread, threads per block, resident blocks per SM, dynamic shared memory
+    bytes per block, and for cluster > 1 the clusters it runs at once."""
+    out = (ctypes.c_int * 6)()
     with torch.cuda.device(device_index):
-        err = _lib().hexl_ntt_split_info(int(kernel == "ntt_fwd_tail"), parts,
-                                         n, out)
+        err = _lib().hexl_ntt_split_info(SPLIT_KERNELS.index(kernel), parts, n,
+                                         MAC_COMPONENTS, cluster, out)
     if err != 0:
         raise RuntimeError(f"split_info({kernel}, {n}, {parts}): cudaError {err}")
-    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm"), out))
+    return dict(zip(("registers", "local_bytes", "threads", "blocks_per_sm",
+                     "smem_bytes", "clusters"), out))
 
 
 def _check(x: torch.Tensor, tabs: ModulusTables, name: str,
@@ -440,8 +504,9 @@ def _reduce4(x, q: int):
     return w.cond_sub64(w.cond_sub64(x, 2 * q), q)
 
 
-def _fwd_parts(x: torch.Tensor, tabs: ModulusTables, parts) -> int:
-    """The parts of a forward call: a caller's, checked, or the kernel's."""
+def _parts(x: torch.Tensor, tabs: ModulusTables, parts, kernel: str) -> int:
+    """The parts of a call of a split kernel: a caller's, checked, or the
+    kernel's own row_split; 2 (the wide kernels' halves) at n = 32768."""
     if parts is not None:
         if route(tabs.n) == "wide":
             raise ValueError(f"n = {tabs.n} takes the wide kernel's two halves, "
@@ -451,9 +516,7 @@ def _fwd_parts(x: torch.Tensor, tabs: ModulusTables, parts) -> int:
         return parts
     if route(tabs.n) == "wide":
         return 2
-    if x.device.type == "cuda":
-        return _row_split(x.shape[0], tabs.n, x.device.index)
-    return _row_split(x.shape[0], tabs.n, None)
+    return row_split(x.shape[0], tabs.n, x.device, kernel)
 
 
 def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables,
@@ -462,7 +525,7 @@ def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables,
     `parts` pieces per row, by default what ntt_fwd launches (row_split, or
     the wide kernel's two halves).  Every split gives the same bits."""
     _check(x, tabs, "ntt_fwd_plain")
-    parts = _fwd_parts(x, tabs, parts)
+    parts = _parts(x, tabs, parts, "ntt_fwd")
     x = w.barrett_canonical(x, tabs.q, tabs.q_barr)
     x = _fwd_split_plain(x, tabs, parts) if parts > 1 else _fwd_stages_plain(x, tabs)
     return _reduce4(x, tabs.q)
@@ -476,7 +539,7 @@ def ntt_fwd(x: torch.Tensor, tabs: ModulusTables,
     _check(x, tabs, "ntt_fwd")
     if x.device.type == "cpu":
         return ntt_fwd_plain(x, tabs, parts)
-    parts = _fwd_parts(x, tabs, parts)
+    parts = _parts(x, tabs, parts, "ntt_fwd")
     out = torch.empty_like(x)
     if route(tabs.n) == "wide":
         _launch("ntt_fwd_wide", _lib().hexl_ntt_fwd_wide, x, x.data_ptr(),
@@ -494,47 +557,78 @@ def ntt_fwd(x: torch.Tensor, tabs: ModulusTables,
 # ---------------------------------------------------------------------------
 
 
-def _inv_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
-                      part: int = 0) -> torch.Tensor:
-    """Inverse stages on rows (R, len) of values < 2q, which stay < 2q.  With
-    parts = 1: the whole row's stages m = n/2 .. 2 (the last is the caller's).
-    With parts > 1: all stages inside piece `part` of rows of n = parts * len,
-    stage ml here being stage m = parts * ml of the whole row, whose twiddles
-    start at n - 2m + 1 (`csrc/ntt_kernels.cuh`, inv_stages)."""
+def _inv_stage_plain(x: torch.Tensor, tabs: ModulusTables, m: int,
+                     root: int) -> torch.Tensor:
+    """One inverse stage on rows (R, len) of values < 2q, which stay < 2q:
+    m groups of distance len / 2m, group j under twiddle root + j."""
     q = tabs.q
     R, length = x.shape
+    v = x.view(R, m, 2, length // (2 * m))
+    W = tabs.tab[2, root : root + m].view(1, m, 1)
+    Wp = tabs.tab[3, root : root + m].view(1, m, 1)
+    X, Y = v[:, :, 0, :], v[:, :, 1, :]
+    return torch.stack(
+        [w.cond_sub64(X + Y, 2 * q), w.mul_mod_lazy(X + 2 * q - Y, W, Wp, q)],
+        dim=2,
+    ).view(R, length)
+
+
+def _inv_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
+                      part: int = 0) -> torch.Tensor:
+    """Inverse stages on rows (R, len).  With parts = 1: the whole row's
+    stages m = n/2 .. 2 (the last is the caller's).  With parts > 1: all
+    stages inside contiguous piece `part` of rows of n = parts * len (the
+    wide kernel's halves), stage ml here being stage m = parts * ml of the
+    whole row, whose twiddles start at n - 2m + 1 (`csrc/ntt_kernels.cuh`,
+    inv_stages)."""
+    length = x.shape[1]
     n = parts * length
-    inv, inv_p = tabs.tab[2], tabs.tab[3]
-    t, m = 1, length >> 1
+    m = length >> 1
     while m >= (1 if parts > 1 else 2):
-        root = n - 2 * parts * m + 1 + part * m
-        v = x.view(R, m, 2, t)
-        W = inv[root : root + m].view(1, m, 1)
-        Wp = inv_p[root : root + m].view(1, m, 1)
-        X, Y = v[:, :, 0, :], v[:, :, 1, :]
-        x = torch.stack(
-            [w.cond_sub64(X + Y, 2 * q),
-             w.mul_mod_lazy(X + 2 * q - Y, W, Wp, q)], dim=2,
-        ).view(R, length)
-        t <<= 1
+        x = _inv_stage_plain(x, tabs, m, n - 2 * parts * m + 1 + part * m)
         m >>= 1
     return x
 
 
+def _inv_split_plain(x: torch.Tensor, tabs: ModulusTables,
+                     parts: int) -> torch.Tensor:
+    """The split inverse kernel's schedule on canonical rows (R, n): the
+    log2(parts) stages that cross the pieces (the row's first: distance
+    t < parts), then piece c, the values at c, c + parts, ..., alone through
+    the row's stages m = n / 2parts .. 2 under the row's twiddles n - 2m + 1 +
+    group (`csrc/ntt_kernels.cuh`, inv_cross and inv_split).  The last stage
+    (m = 1, inside each piece) is the caller's."""
+    R, n = x.shape
+    m = n >> 1
+    while m >= n // parts:
+        x = _inv_stage_plain(x, tabs, m, n - 2 * m + 1)
+        m >>= 1
+    pieces = x.view(R, n // parts, parts).transpose(1, 2).reshape(R * parts, -1)
+    while m >= 2:
+        pieces = _inv_stage_plain(pieces, tabs, m, n - 2 * m + 1)
+        m >>= 1
+    return pieces.view(R, parts, n // parts).transpose(1, 2).reshape(R, n)
+
+
 def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables,
-                  split: bool | None = None) -> torch.Tensor:
+                  parts: int | None = None,
+                  halves: bool | None = None) -> torch.Tensor:
     """Plain PyTorch version of ntt_inv (any device), on the kernel's split:
-    by default the wide kernel's two halves at n = 32768, else the whole row;
-    `split` True / False forces one or the other.  Both give the same bits."""
+    `parts` strided pieces per row, by default what ntt_inv launches
+    (row_split); at n = 32768 the wide kernel's two contiguous halves, which
+    `halves=True` forces at any n.  Every split gives the same bits."""
     _check(x, tabs, "ntt_inv_plain", forward=False)
-    if split is None:
-        split = route(tabs.n) == "wide"
+    parts = _parts(x, tabs, parts, "ntt_inv")
+    if halves is None:
+        halves = route(tabs.n) == "wide"
     q, h = tabs.q, tabs.n >> 1
     x = w.barrett_canonical(x, q, tabs.q_barr)
-    if split:
+    if halves:
         x = torch.cat(
             [_inv_stages_plain(x[:, part * h : (part + 1) * h].contiguous(),
                                tabs, 2, part) for part in range(2)], dim=1)
+    elif parts > 1:
+        x = _inv_split_plain(x, tabs, parts)
     else:
         x = _inv_stages_plain(x, tabs)
     # last stage fused with the n^-1 scaling
@@ -546,19 +640,24 @@ def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables,
     return w.cond_sub64(torch.cat([lo, hi], dim=1), q)
 
 
-def ntt_inv(x: torch.Tensor, tabs: ModulusTables) -> torch.Tensor:
+def ntt_inv(x: torch.Tensor, tabs: ModulusTables,
+            parts: int | None = None) -> torch.Tensor:
     """Inverse negacyclic NTT of each row of x (R, n) int64 under tabs.q:
     bit-reversed in, natural out, scaled by n^-1, canonical.  The canonical
-    output matters: callers re-reduce its integer value under other moduli."""
+    output matters: callers re-reduce its integer value under other moduli.
+    `parts` overrides row_split's blocks per row (n <= 16384 only)."""
     _check(x, tabs, "ntt_inv", forward=False)
     if x.device.type == "cpu":
-        return ntt_inv_plain(x, tabs)
-    name = "ntt_inv" if route(tabs.n) == "row" else "ntt_inv_wide"
+        return ntt_inv_plain(x, tabs, parts)
+    parts = _parts(x, tabs, parts, "ntt_inv")
     out = torch.empty_like(x)
-    _launch(name, getattr(_lib(), f"hexl_{name}"), x, x.data_ptr(),
-            out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q,
-            tabs.q_barr, tabs.inv_n, tabs.inv_n_precon, tabs.inv_n_w,
-            tabs.inv_n_w_precon)
+    args = (x.data_ptr(), out.data_ptr(), tabs.tab.data_ptr(), x.shape[0],
+            tabs.n, tabs.q, tabs.q_barr, tabs.inv_n, tabs.inv_n_precon,
+            tabs.inv_n_w, tabs.inv_n_w_precon)
+    if route(tabs.n) == "wide":
+        _launch("ntt_inv_wide", _lib().hexl_ntt_inv_wide, x, *args)
+    else:
+        _launch("ntt_inv", _lib().hexl_ntt_inv, x, *args, parts)
     return out
 
 
@@ -574,6 +673,8 @@ def ntt_fwd_tail_plain(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
     for name, x in (("e", e), ("acc", acc), ("res", res)):
         _check(x, tabs, f"ntt_fwd_tail_plain({name})")
     q = tabs.q
+    if parts is None and route(tabs.n) == "row":
+        parts = row_split(e.shape[0], tabs.n, e.device, "ntt_fwd_tail")
     g = ntt_fwd_plain(w.add64(e, fix), tabs, parts)
     a = w.barrett_canonical(acc, q, tabs.q_barr)
     t1 = w.reduce_mod_factor(w.add64(w.sub64(a, g), 4 * q), q, 8)
@@ -604,7 +705,7 @@ def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
             f"ntt_fwd_tail: no kernel serves n = {tabs.n} (a row must fit one "
             f"block's shared memory, n <= 16384)"
         )
-    parts = _fwd_parts(e, tabs, parts)
+    parts = _parts(e, tabs, parts, "ntt_fwd_tail")
     out = torch.empty_like(e)
     _launch("ntt_fwd_tail", _lib().hexl_ntt_fwd_tail, e, e.data_ptr(),
             acc.data_ptr(), res.data_ptr(), out.data_ptr(),
@@ -650,14 +751,39 @@ def _check_mac(data, keys, kp, j: int, tabs: ModulusTables, skip_i,
     return L, comp, K, data.shape[0] // L
 
 
+def _mac_shape(data, tabs: ModulusTables, B: int, limbs: int, parts,
+               cluster) -> tuple:
+    """(parts, cluster) of an engine call: each a caller's, checked, or
+    mac_split's."""
+    chosen = mac_split(B, limbs, tabs.n, data.device)
+    if parts is None:
+        parts = chosen[0]
+    else:
+        parts = _parts(data, tabs, parts, "ntt_fwd_mac")
+        if mac_chunk(tabs.n, parts, 1) < 1:
+            raise ValueError(f"ntt_fwd_mac: a piece of {tabs.n // parts} values "
+                             f"leaves no shared memory for the sums")
+    if cluster is None:
+        cluster = chosen[1]
+    if not 1 <= cluster <= min(8, limbs):
+        raise ValueError(f"ntt_fwd_mac: cluster must be 1 .. min(8, {limbs} "
+                         f"summed limbs), got {cluster}")
+    return parts, cluster
+
+
 def ntt_fwd_mac_plain(data, keys, kp, j: int, tabs: ModulusTables,
-                      skip_i: int | None = None) -> torch.Tensor:
+                      skip_i: int | None = None,
+                      parts: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of ntt_fwd_mac (any device): canonical forward
-    transform, Harvey lazy multiply by the key column, wrapping sum over the
-    source limbs."""
+    transform on the kernel's split (`parts` as in ntt_fwd_mac), Harvey lazy
+    multiply by the key column, wrapping sum over the source limbs (the order
+    of a wrapping sum does not change its bits, so the kernel's grouping of
+    the limbs has no counterpart here)."""
     L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i,
                                "ntt_fwd_mac_plain")
-    val = ntt_fwd_plain(data, tabs).view(L, 1, B, tabs.n)
+    if parts is None and route(tabs.n) == "row":
+        parts = mac_split(B, L - (skip_i is not None), tabs.n, data.device)[0]
+    val = ntt_fwd_plain(data, tabs, parts).view(L, 1, B, tabs.n)
     terms = w.mul_mod_lazy(val, keys[:, :, j, None, :], kp[:, :, j, None, :],
                            tabs.q)  # (L, comp, B, n), each in [0, 2q)
     if skip_i is not None:
@@ -666,7 +792,8 @@ def ntt_fwd_mac_plain(data, keys, kp, j: int, tabs: ModulusTables,
 
 
 def ntt_fwd_mac(data, keys, kp, j: int, tabs: ModulusTables,
-                skip_i: int | None = None) -> torch.Tensor:
+                skip_i: int | None = None, parts: int | None = None,
+                cluster: int | None = None) -> torch.Tensor:
     """Keyswitch engine for one modulus q = tabs.q, key column j:
 
         out[k, b] = sum over i != skip_i of
@@ -676,20 +803,27 @@ def ntt_fwd_mac(data, keys, kp, j: int, tabs: ModulusTables,
     u64 representative; keys, kp the whole staged (L, comp, K, n) key and
     precon tensors (no copy of the column is made); out (comp, B, n), a
     wrapping u64 sum of terms in [0, 2q), so out < 2*L*q.  skip_i names the
-    identity limb whose term the caller adds itself; it needs L >= 2."""
+    identity limb whose term the caller adds itself; it needs L >= 2.
+    `parts` (blocks per row) and `cluster` (blocks that share the limbs)
+    override mac_split's launch shape (n <= 16384 only)."""
     L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i, "ntt_fwd_mac")
-    if data.device.type == "cpu":
-        return ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i)
     if route(tabs.n) != "row":
+        if data.device.type == "cpu":
+            return ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i, parts)
         raise ValueError(
             f"ntt_fwd_mac: no kernel serves n = {tabs.n} (a row must fit one "
             f"block's shared memory, n <= 16384)"
         )
+    parts, cluster = _mac_shape(data, tabs, B, L - (skip_i is not None), parts,
+                                cluster)
+    if data.device.type == "cpu":
+        return ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i, parts)
     out = torch.empty((comp, B, tabs.n), dtype=torch.int64, device=data.device)
     _launch("ntt_fwd_mac", _lib().hexl_ntt_fwd_mac, data, data.data_ptr(),
             keys.data_ptr(), kp.data_ptr(), out.data_ptr(),
             tabs.tab.data_ptr(), L, B, comp, K, j,
-            -1 if skip_i is None else skip_i, tabs.n, tabs.q, tabs.q_barr)
+            -1 if skip_i is None else skip_i, tabs.n, tabs.q, tabs.q_barr,
+            parts, cluster)
     return out
 
 

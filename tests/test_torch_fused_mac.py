@@ -1,10 +1,15 @@
 """The fused transform + key-MAC engine (`ntt_cuda.ntt_fwd_mac`): its plain
 version on the CPU vs the reference's Pallas kernel (`raw_fwd_mac_call`, in
-interpret mode) and vs sums of golden products.  Tolerance: zero, after
-reduction mod q (both sides are lazy representatives)."""
+interpret mode) and vs sums of golden products, on the kernel's split of a
+row into C pieces too; and the kernel's launch shape (`mac_split`).
+Tolerance: zero, after reduction mod q (both sides are lazy
+representatives)."""
+
+import functools
 
 import numpy as np
 import pytest
+import torch
 
 from hexl_fpga_tpu.ops import ntt_mxu_pallas, word64 as jw
 from hexl_fpga_tpu_torch.ops import golden, nt, ntt_cuda, twiddles, word64 as w
@@ -116,4 +121,75 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="contiguous int64"):
         ntt_cuda.ntt_fwd_mac(d, k.transpose(0, 1), p, 0, tabs)  # same shape, strided
     # a CPU tensor took the plain version: nothing was launched
+    assert ntt_cuda.LAUNCHES["ntt_fwd_mac"] == 0
+
+
+# -- the kernel's split: C pieces a row, the limbs shared by a cluster --------
+
+SPLIT_L = 3
+
+
+@functools.lru_cache(maxsize=None)
+def split_case():
+    """(moduli, data, keys, precons) at L = 3, so that a middle limb exists."""
+    return make_case(3, seed=50, L=SPLIT_L)
+
+
+@functools.lru_cache(maxsize=None)
+def pallas_split_ref(skip_i):
+    """The Pallas kernel's lazy sums (interpret mode) for the split case."""
+    moduli, data, keys, kp = split_case()
+    j = 2 if skip_i is None else skip_i
+    call = ntt_mxu_pallas.raw_fwd_mac_call(
+        N, moduli[j], SPLIT_L, COMP, tile_p=2, skip_i=skip_i, interpret=True,
+        data_bits=53)
+    col = lambda a: jw.to_pair_np(np.ascontiguousarray(a[:, :, j]))
+    lo, hi = call(*jw.to_pair_np(data), *col(keys), *col(kp))
+    return jw.from_pair_np(np.asarray(lo), np.asarray(hi))
+
+
+@pytest.mark.parametrize("skip_i,parts", [(s, p) for s in (None, 0, 1, 2)
+                                          for p in (1, 2, 4)])
+def test_split_plain_matches_pallas_kernel_and_golden(skip_i, parts):
+    """ntt_fwd_mac_plain on C-piece rows (the kernel's transform schedule)
+    against the reference's kernel and golden sums, with no limb, the first,
+    a middle or the last skipped."""
+    moduli, data, keys, kp = split_case()
+    j = 2 if skip_i is None else skip_i
+    q = moduli[j]
+    tabs = ntt_cuda.modulus_tables(N, q)
+    got = w.to_u64_np(ntt_cuda.ntt_fwd_mac_plain(
+        w.from_u64_np(data), w.from_u64_np(keys), w.from_u64_np(kp), j, tabs,
+        skip_i, parts))
+    assert int(got.max()) < 2 * SPLIT_L * q
+    ref = pallas_split_ref(skip_i)
+    np.testing.assert_array_equal(got % np.uint64(q), ref % np.uint64(q))
+    np.testing.assert_array_equal(got % np.uint64(q),
+                                  golden_sum(data, keys, j, q, skip_i, L=SPLIT_L))
+    # the bits do not depend on the split: equal to the one-block schedule
+    np.testing.assert_array_equal(got, run_plain(data, keys, kp, j, q, skip_i))
+
+
+def test_mac_launch_shape_at_the_fused_body():
+    """The fused-MAC body's engines (32 rows over 6 limbs, or 5 with the
+    identity limb skipped) take pairs of blocks at two pieces a row: 128
+    blocks, one wave of the model's one block an SM; one limb takes no
+    cluster; a piece must leave room for the sums."""
+    assert ntt_cuda.mac_split(32, 6, 16384) == (2, 2)
+    assert ntt_cuda.mac_split(32, 5, 16384) == (2, 2)
+    assert ntt_cuda.mac_split(32, 1, 16384)[1] == 1
+    assert ntt_cuda.split_candidates(16384, "ntt_fwd_mac") == [2, 4]
+    assert ntt_cuda.mac_chunk(16384, 1, 2) == 0  # 136 KB piece, 128 KB a component
+    assert ntt_cuda.mac_chunk(16384, 2, 2) == 2
+    moduli, data, keys, kp = make_case(3, seed=51)
+    d, k, p = w.from_u64_np(data), w.from_u64_np(keys), w.from_u64_np(kp)
+    tabs = ntt_cuda.modulus_tables(N, moduli[0])
+    with pytest.raises(ValueError, match="cluster"):
+        ntt_cuda.ntt_fwd_mac(d, k, p, 0, tabs, 0, cluster=2)  # one limb left
+    with pytest.raises(ValueError, match="parts"):
+        ntt_cuda.ntt_fwd_mac(d, k, p, 0, tabs, parts=3)
+    # a CPU tensor under a forced launch shape takes the plain version
+    ntt_cuda.reset_launch_counts()
+    assert torch.equal(ntt_cuda.ntt_fwd_mac(d, k, p, 0, tabs, None, 4, 2),
+                       ntt_cuda.ntt_fwd_mac_plain(d, k, p, 0, tabs, None, 1))
     assert ntt_cuda.LAUNCHES["ntt_fwd_mac"] == 0

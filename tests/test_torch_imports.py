@@ -24,6 +24,8 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.utils.profile_paths",
     "hexl_fpga_tpu_torch.utils.cuda_timing",
     "hexl_fpga_tpu_torch.utils.sweep_row_split",
+    "hexl_fpga_tpu_torch.utils.sass_count",
+    "hexl_fpga_tpu_torch.utils.ablate_kernels",
 ]
 
 

@@ -106,9 +106,9 @@ def test_two_halves_schedule_at_small_n(n, bits):
         f = run_port(ntt_cuda.ntt_fwd_plain, a, tabs, 2)  # parts
         np.testing.assert_array_equal(f, golden.fwd_ntt(red, q, gt))
         np.testing.assert_array_equal(f, run_port(ntt_cuda.ntt_fwd_plain, a, tabs, 1))
-        i = run_port(ntt_cuda.ntt_inv_plain, a, tabs, True)
+        i = run_port(ntt_cuda.ntt_inv_plain, a, tabs, None, True)  # halves
         np.testing.assert_array_equal(i, golden.inv_ntt(red, q, gt))
-        np.testing.assert_array_equal(i, run_port(ntt_cuda.ntt_inv_plain, a, tabs, False))
+        np.testing.assert_array_equal(i, run_port(ntt_cuda.ntt_inv_plain, a, tabs, 1))
 
 
 def test_route_by_n_and_no_kernel_beyond():

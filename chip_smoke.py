@@ -8,8 +8,9 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
   1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/ (one nvcc per
      source, side by side),
   2. holds the split kernels `ntt_fwd`, `ntt_fwd_tail`, `ntt_inv` and
-     `ntt_fwd_mac` against their plain versions over n = 4 .. 16384 (at
-     n = 16384 rows 1 .. 256), moduli of 30 and 61 bits, 53-bit and any-u64
+     `ntt_fwd_mac` against their plain versions over n = 4 .. 32768 (at
+     n = 16384 rows 1 .. 256, at 32768 rows 1, 5 and 32), moduli of 30 and
+     61 bits, 53-bit and any-u64
      input, at the wrappers' own launch shape and at every other one (the MAC
      also at every cluster of blocks sharing its limbs, with no limb, the
      first or the last skipped) (`split_sweep`); then each kernel against its
@@ -19,14 +20,22 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      keyswitch transforms at n = 16384 under the frozen vector's seven moduli
      and at n = 1024; `dyadic_mul` at (32, 2, 14, 16384) on canonical operands,
      operands in [0, 4q) and random 64-bit ones, on the ramp stimulus over
-     q = 10, 20, 30 at n = 64 and under q = 2, 3; the wide transforms at
-     (32, 32768) under a 61-bit prime on canonical and random 64-bit input,
+     q = 10, 20, 30 at n = 64 and under q = 2, 3; the standalone transforms
+     at (32, 32768) under a 61-bit prime on canonical and random 64-bit
+     input, at their own launch shape and at C = 2 and 4 (`ntt_fwd` /
+     `ntt_inv`: a row of 32768 values takes 2 or 4 blocks, never one),
   3. drives the main path through the public API: 64 KeySwitch ops at
      16384_6_7_7_2 in batches of 32 with the frozen vector's moduli, keys,
      twiddles and modswitch factors; two ops carry the vector's own operands
      (checked against its expected_output), the rest operands drawn from a
      numpy seed; EVERY op is checked against the golden model, and the launch
-     counters must read 7 forward / 7 inverse / 6 tail launches per batch,
+     counters must read 7 forward / 7 inverse / 6 tail launches per batch;
+     then `copy_overlap` (the executor's copy stream): 96 KeySwitch ops in
+     3 batches of 32 through the API with the executor's timing events on,
+     every op against the device context's own batch (held to the golden
+     model above); it prints how long the copy back of batch i-1 overlaps
+     the body of batch i (`copy_overlap_ms`) and fails if that copy starts
+     only after the body ends,
   4. drives the DyadicMultiply path: 64 ops at n = 16384 under 14 moduli of 50
      bits in batches of 32, every op checked against an oracle that is not the
      kernel's arithmetic (the first 8 the bignum golden model, the rest a
@@ -34,8 +43,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
   5. drives the _NTT / _INTT path: 1024 ops each way at n = 16384 under a
      52-bit prime in batches of 256 with the caller's tables, then 64 each way
      at n = 32768 under a 61-bit prime in batches of 32; every op against the
-     golden transforms and the round trip against the input; 4 + 4 launches of
-     the row kernels, 2 + 2 of the wide ones,
+     golden transforms and the round trip against the input; `ntt_fwd` 4 and
+     `ntt_inv` 4 launches at n = 16384, 2 and 2 at n = 32768,
   6. drives the device KeySwitch context by hand at 16384_6_7_7_2, batch 32
      (`device_path`): the fused transform+MAC schedule (`fused_mac=True`)
      against the default schedule bit for bit and two ops against the golden
@@ -85,6 +94,7 @@ from hexl_fpga_tpu_torch.ops import (
     dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles,
     word64 as w,
 )
+from hexl_fpga_tpu_torch.runtime import scheduler
 from hexl_fpga_tpu_torch.utils import cuda_timing, vectors
 from hexl_fpga_tpu_torch.utils.cuda_timing import event_ms as time_ms, rotating
 
@@ -280,10 +290,6 @@ def profile_later(entry, name, kern):
     PROFILE_LATER.append((entry, name, kern))
 
 
-# the kernels one wrapper call launches, where they are not just "<name>_kernel"
-CALL_KERNELS = {"ntt_inv_wide": ("ntt_inv_wide_halves_kernel", "ntt_inv_wide_last_kernel")}
-
-
 def profile_kernels(reps=20):
     """Fill in each PROFILE_LATER entry: the host's enqueue time per call
     (`host_ms`, all taken before the profiler first runs), then the kernels'
@@ -291,9 +297,8 @@ def profile_kernels(reps=20):
     for entry, _, kern in PROFILE_LATER:
         entry["host_ms"] = cuda_timing.host_ms(kern, reps)
     for entry, name, kern in PROFILE_LATER:
-        kernels = CALL_KERNELS.get(name, (f"{name}_kernel",))
-        entry["device_ms"], count = cuda_timing.device_ms(kern, reps, kernels)
-        assert count == reps * len(kernels), (name, count)  # every launch, no other
+        entry["device_ms"], count = cuda_timing.device_ms(kern, reps, {f"{name}_kernel"})
+        assert count == reps, (name, count)  # one launch a call, no other
 
 
 def split_fields(name, rows, n):
@@ -329,7 +334,7 @@ def mac_fields(B, limbs, n):
 # any-u64 input
 SWEEP_N = ((4, (1, 5)), (8, (5,)), (16, (5,)), (64, (5,)), (1024, (5,)),
            (2048, (5,)), (4096, (5,)), (8192, (5, 64)),
-           (16384, (1, 5, 32, 64, 192, 256)))
+           (16384, (1, 5, 32, 64, 192, 256)), (32768, (1, 5, 32)))
 
 
 def mac_sweep_keys(rng, n, q, L, device):
@@ -342,7 +347,8 @@ def mac_sweep_keys(rng, n, q, L, device):
 def check_split_sweep(device):
     """ntt_fwd, ntt_fwd_tail, ntt_inv and ntt_fwd_mac against their plain
     versions over SWEEP_N, both moduli and both inputs, at the wrappers' own
-    launch shape and at every other parts a row of n can take (the MAC also
+    launch shape and at every other parts a row of n can take (C pieces of
+    at least 2 values that fit one block's shared memory; the MAC also
     at every cluster of blocks sharing its limbs, with no limb, the first or
     the last skipped; 6 limbs of 32 rows at 192 rows, 5 limbs of one row at
     5); returns the count of comparisons (each 0)."""
@@ -370,7 +376,7 @@ def check_split_sweep(device):
                     if rows not in (5, 192):
                         continue
                     for parts in (1, 2, 4):
-                        if 2 * parts > n:
+                        if 2 * parts > n or not ntt_cuda.piece_fits(n, parts):
                             continue
                         assert_same(f"ntt_fwd parts={parts}",
                                     ntt_cuda.ntt_fwd(x, tabs, parts), want)
@@ -576,30 +582,35 @@ def transform_entry(name, replaces, rows, n, extra_imad, kern, plain, err):
 
 
 def check_standalone_transforms(device):
-    """The standalone transform pair at the _NTT/_INTT path's shapes: the wide
-    kernels at (32, 32768) under a 61-bit prime against their plain versions
-    (canonical and any-u64 input) with their `kernels` entries, and the times
-    of the row kernels at the path's (256, 16384)."""
+    """The standalone transform pair at the _NTT/_INTT path's shapes: at
+    (32, 32768) under a 61-bit prime, where a row takes 2 or 4 blocks, each
+    kernel against its plain version at its own launch shape and at every C
+    (canonical and any-u64 input), with its `kernels` entry; and the times of
+    the same kernels at the path's (256, 16384)."""
     rng = np.random.default_rng(6)
     entries, at_path_shape = [], []
     for n, bits, _, rows in NTT_CELLS:
         q = int(nt.generate_primes(1, bits, n)[0])
         tabs = ntt_cuda.modulus_tables(n, q, device=device)
-        wide = ntt_cuda.route(n) == "wide"
-        fwd_name, inv_name = ("ntt_fwd_wide", "ntt_inv_wide") if wide else ("ntt_fwd", "ntt_inv")
-        err = {fwd_name: 0, inv_name: 0}
+        err = {"ntt_fwd": 0, "ntt_inv": 0}
+        parts = ntt_cuda.split_candidates(n)
         for x in (
             w.from_u64_np(rng.integers(0, q, size=(rows, n), dtype=np.uint64), device),
             rand_u64(rng, (3, n), 64, device),
         ):
-            before = dict(ntt_cuda.LAUNCHES)
-            err[fwd_name] = max(err[fwd_name], assert_same(
-                fwd_name, ntt_cuda.ntt_fwd(x, tabs), ntt_cuda.ntt_fwd_plain(x, tabs)))
-            err[inv_name] = max(err[inv_name], assert_same(
-                inv_name, ntt_cuda.ntt_inv(x, tabs), ntt_cuda.ntt_inv_plain(x, tabs)))
-            # n chose the kernel: nothing else was launched
-            for k, v in ntt_cuda.LAUNCHES.items():
-                assert v - before[k] == (k in err), (k, n)
+            for name, fn, plain in (
+                ("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_plain),
+                ("ntt_inv", ntt_cuda.ntt_inv, ntt_cuda.ntt_inv_plain),
+            ):
+                want = plain(x, tabs)
+                before = dict(ntt_cuda.LAUNCHES)
+                err[name] = max(err[name], assert_same(name, fn(x, tabs), want))
+                # one launch of the kernel, nothing else
+                assert {k: v - before[k] for k, v in ntt_cuda.LAUNCHES.items()} == {
+                    k: int(k == name) for k in before}, (name, n)
+                for c in parts:
+                    err[name] = max(err[name], assert_same(
+                        f"{name} parts={c}", fn(x, tabs, c), want))
         ins = rotating(
             lambda: w.from_u64_np(
                 rng.integers(0, q, size=(rows, n), dtype=np.uint64), device),
@@ -609,15 +620,17 @@ def check_standalone_transforms(device):
         call = lambda fn, ins=ins, tabs=tabs: lambda: fn(ins(), tabs)
         made = [
             transform_entry(
-                fwd_name, "hexl_fpga_tpu/ops/ntt_pallas.py:179", rows, n,
+                "ntt_fwd", "hexl_fpga_tpu/ops/ntt_pallas.py:179", rows, n,
                 IMAD_BARRETT, call(ntt_cuda.ntt_fwd),
-                call(ntt_cuda.ntt_fwd_plain), err[fwd_name]),
+                call(ntt_cuda.ntt_fwd_plain), err["ntt_fwd"]),
             transform_entry(
-                inv_name, "hexl_fpga_tpu/ops/ntt_pallas.py:200", rows, n,
+                "ntt_inv", "hexl_fpga_tpu/ops/ntt_pallas.py:200", rows, n,
                 IMAD_BARRETT + IMAD_LAZY_MUL // 2, call(ntt_cuda.ntt_inv),
-                call(ntt_cuda.ntt_inv_plain), err[inv_name]),
+                call(ntt_cuda.ntt_inv_plain), err["ntt_inv"]),
         ]
-        (entries if wide else at_path_shape).extend(made)
+        for entry in made:
+            entry["parts_compared"] = parts
+        (entries if n > 16384 else at_path_shape).extend(made)
     return entries, at_path_shape
 
 
@@ -719,6 +732,69 @@ def main_path(vec, device, rehearse):
         out["device_bytes_keys_and_precons"] = 2 * keys.numel() * 8
         out["device_bytes_operands_in_per_batch"] = (t.numel() + r.numel()) * 8
         out["device_bytes_results_out_per_batch"] = r.numel() * 8
+    return out
+
+
+# the executor's copy stream: KeySwitch batches through the API, the copy
+# back of each overlapping the next batch's body
+OVERLAP_BATCHES = 3
+
+
+def copy_overlap_path(vec, device, rehearse):
+    """OVERLAP_BATCHES * BATCH KeySwitch ops through the API in batches of
+    BATCH, with the executor's timing events on (`TorchExecutor.timeline`):
+    on the card's clock, from the first body's start, each batch's body
+    (start, end) on the compute stream and its copy back (start, end) on the
+    copy stream, and how long the copy back of batch i-1 overlaps body i.
+    Every op is checked against the device context's own batch (the body
+    the main path holds to the golden model).  Fails if a copy back starts
+    only after the next batch's body ends."""
+    n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    ops = make_ops(vec, OVERLAP_BATCHES * BATCH, seed=13)
+    ctx = keyswitch_cuda.get_context(
+        n, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors,
+        device=device,
+    )
+    want = np.concatenate([
+        ctx.run_batch(np.stack([r for r, _ in ops[i:i + BATCH]]),
+                      np.stack([t for _, t in ops[i:i + BATCH]]), *keyed)
+        for i in range(0, len(ops), BATCH)])
+
+    start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
+    drive_api(vec, ops[:BATCH])  # the runtime's first batch, not timed
+    executor = scheduler.pool().devices[0].executor
+    executor.timeline = []
+    ntt_cuda.reset_launch_counts()
+    results, wall_s = drive_api(vec, ops)
+    launches = {k: v for k, v in ntt_cuda.LAUNCHES.items() if v}
+    hexl.release_FPGA_resources()
+
+    for i, exp in enumerate(want):
+        np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
+    expected = {} if rehearse else {"ntt_fwd": (L + 1) * OVERLAP_BATCHES,
+                                    "ntt_inv": (L + 1) * OVERLAP_BATCHES,
+                                    "ntt_fwd_tail": L * OVERLAP_BATCHES}
+    assert launches == expected, (launches, expected)
+    out = {"config": vec.config_name, "ops": len(ops), "batch": BATCH,
+           "ops_checked_vs_device_batch": len(ops), "launches": launches}
+    if rehearse:  # the CPU has no streams
+        assert executor.timeline == []
+        return out
+    torch.cuda.synchronize()
+    marks = executor.timeline
+    assert len(marks) == OVERLAP_BATCHES, len(marks)
+    t0 = marks[0][0]
+    # per batch: body start, body end, copy-back start, copy-back end
+    ms = [[t0.elapsed_time(e) for e in m] for m in marks]
+    overlap = []
+    for i in range(1, OVERLAP_BATCHES):
+        (b0, b1, _, _), (_, _, c0, c1) = ms[i], ms[i - 1]
+        assert c0 < b1, (f"the copy back of batch {i - 1} starts at {c0} ms, "
+                         f"after body {i} ends at {b1} ms")
+        overlap.append(max(0.0, min(b1, c1) - max(b0, c0)))
+    out.update(timeline_ms=ms, copy_overlap_ms=overlap,
+               api_ops_per_s=len(ops) / wall_s)
     return out
 
 
@@ -863,9 +939,7 @@ def ntt_cell(device, rehearse, n, bits, count, batch):
 
     np.testing.assert_array_equal(np.stack(got_fwd), want_fwd)
     np.testing.assert_array_equal(np.stack(got_inv), src)  # the round trip
-    wide = ntt_cuda.route(n) == "wide"
-    names = ("ntt_fwd_wide", "ntt_inv_wide") if wide else ("ntt_fwd", "ntt_inv")
-    expected = {} if rehearse else dict.fromkeys(names, count // batch)
+    expected = {} if rehearse else dict.fromkeys(("ntt_fwd", "ntt_inv"), count // batch)
     assert launches == expected, (launches, expected)
 
     out = {
@@ -891,7 +965,7 @@ def ntt_cell(device, rehearse, n, bits, count, batch):
 def ntt_path(device, rehearse):
     cells = []
     for n, bits, count, batch in NTT_CELLS:
-        if rehearse:  # the same two routes, little work
+        if rehearse:  # the same two cells, little work
             n, count, batch = (1024, 64, 16) if n <= 16384 else (n, 4, 2)
         cells.append(ntt_cell(device, rehearse, n, bits, count, batch))
     launches = {}
@@ -1086,10 +1160,11 @@ def main(rehearse: bool = False) -> int:
         kernels = check_kernels(vec, device)
         kernels.append(check_mac_kernel(vec, device))
         kernels.append(check_dyadic_kernel(device))
-        wide, at_path_shape = check_standalone_transforms(device)
-        kernels += wide
+        at_32768, at_path_shape = check_standalone_transforms(device)
+        kernels += at_32768
     paths = {
         "main_path": main_path(vec, device, rehearse),
+        "copy_overlap": copy_overlap_path(vec, device, rehearse),
         "dyadic_path": dyadic_path(device, rehearse),
         "ntt_path": ntt_path(device, rehearse),
         "device_path": device_path(vec, device, rehearse),
@@ -1097,8 +1172,14 @@ def main(rehearse: bool = False) -> int:
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
     profile_kernels()
-    for k in kernels:  # launches summed over the paths' counted passes
-        k["launches"] = sum(p["launches"].get(k["name"], 0) for p in paths.values())
+    ntt_cells = {c["n"]: c["launches"] for c in paths["ntt_path"]["cells"]}
+    for k in kernels:
+        if k["replaces"].startswith("hexl_fpga_tpu/ops/ntt_pallas.py"):
+            # B6 at n = 32768: the _NTT / _INTT cell's own counted pass
+            k["launches"] = ntt_cells[k["shape"][1]].get(k["name"], 0)
+        else:  # summed over the paths' counted passes
+            k["launches"] = sum(p["launches"].get(k["name"], 0)
+                                for p in paths.values())
         assert k["launches"] > 0, k["name"]
     for name, path in paths.items():
         emit({name: path})

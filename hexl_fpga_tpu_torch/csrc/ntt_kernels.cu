@@ -4,8 +4,6 @@
 //   hexl_ntt_inv       batched inverse NTT, bit-reversed in -> canonical, natural out
 //   hexl_ntt_fwd_tail  keyswitch tail: +fix, forward NTT, modswitch, accumulate
 //   hexl_ntt_fwd_mac   keyswitch engine: forward NTT fused with the key MAC
-//   hexl_ntt_fwd_wide  hexl_ntt_fwd for a row of twice a block's shared memory
-//   hexl_ntt_inv_wide  hexl_ntt_inv for such a row
 //
 // The first three replace the fused MXU kernels of
 // hexl_fpga_tpu/ops/ntt_mxu_pallas.py (_fwd_kernel, _inv_kernel, the
@@ -13,15 +11,15 @@
 // raw_fwd_mac_call kernel of the same file.  Those compute the transform as
 // two int8-limb matrix products because their target has no 64-bit integers; this card has
 // them (__umul64hi), so the transform here is the Harvey butterfly network
-// itself.  With the wide pair they are also the counterpart of the batched
-// butterfly kernels of hexl_fpga_tpu/ops/ntt_pallas.py (_fwd_kernel,
+// itself.  hexl_ntt_fwd and hexl_ntt_inv are also the counterpart of the
+// batched butterfly kernels of hexl_fpga_tpu/ops/ntt_pallas.py (_fwd_kernel,
 // _inv_kernel: canonical in, canonical out, a tile resident for all stages),
 // which keep a (tile, n) block in a fast memory of many megabytes; a block
-// here has 227 KB, so a row of n = 32768 (256 KB) is split in two halves.
+// here has 227 KB, so a row of n = 32768 (256 KB) takes C = 2 or 4 blocks.
 //
 // Layout: rows of n contiguous u64 (passed as int64 bit patterns).  `tab` is
 // a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.
-// The first four run a split core of ntt_kernels.cuh: `parts` blocks per
+// All four run a split core of ntt_kernels.cuh: `parts` blocks per
 // row, each with n/parts values in dynamic shared memory, several butterfly
 // stages per barrier in registers; the caller chooses parts
 // (ntt_cuda.row_split, ntt_cuda.mac_split).  The forward kernels (fwd_split)
@@ -29,22 +27,16 @@
 // both the stages that cross the pieces are done from device memory while
 // loading.  hexl_ntt_fwd_mac sums over the source limbs in shared memory,
 // inside a block or over a thread-block cluster, and stores each output once.
-// The wide entries run two blocks per row, each with one half (128 KB at
-// n = 32768) in shared memory and a barrier per stage: forward, a block does
-// the one stage that crosses the halves while it loads (it reads both halves
-// from device memory and keeps its own), then its half's log2(n) - 1 stages;
-// inverse, the halves' stages run first and go to `out`, and a second
-// elementwise kernel of the same entry does the crossing last stage, fused
-// with n^-1, in place.  Each entry launches on the given stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError() (0 =
-// launched).
+// Each entry launches one kernel on the given stream, does not synchronise,
+// allocates nothing, and returns cudaGetLastError() (0 = launched).
 //
 // Bound: per coefficient the kernels move 16..32 bytes and do log2(n)/2
 // butterflies of three 64-bit multiplies (about ten 32-bit multiply-adds); by
 // that count bytes and multiplies are within a factor of two of each other.
-// What limits a kernel that keeps a row in one block is neither: it is the
-// shared-memory traffic of log2(n) stages with a barrier each, and one block
-// per SM.  The split cores' design against both is in ntt_kernels.cuh.
+// What limited the first kernels here, a row in one block with a barrier a
+// stage, was neither: it was the shared-memory traffic of log2(n) stages
+// with a barrier each, and one block per SM.  The split cores' design
+// against both is in ntt_kernels.cuh.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -191,76 +183,9 @@ ntt_fwd_mac_kernel(const u64* __restrict__ data, const u64* __restrict__ keys,
   }
 }
 
-// Forward NTT of a row held as two halves, one block each (blockIdx.x =
-// 2 * row + half).  Stage m = 1 pairs i with i + n/2 under the single twiddle
-// tab[1]; each block computes it for its own half while loading.
-__global__ void __launch_bounds__(1024)
-ntt_fwd_wide_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-                    const u64* __restrict__ tab, int n, u64 q, u64 q_barr) {
-  u64* s = smem_row;
-  const int len = n >> 1;
-  const int part = blockIdx.x & 1;
-  const size_t base = (size_t)(blockIdx.x >> 1) * n;
-  const u64 twice_q = 2 * q;
-  const u64 W = tab[1], Wp = tab[n + 1];
-  for (int i = threadIdx.x; i < len; i += blockDim.x) {
-    const u64 tx = cond_sub(barrett_canonical(in[base + i], q, q_barr), twice_q);
-    const u64 T =
-        mul_lazy(barrett_canonical(in[base + i + len], q, q_barr), W, Wp, q);
-    s[i] = part == 0 ? tx + T : tx + twice_q - T;
-  }
-  __syncthreads();
-  fwd_stages(s, tab, tab + n, len, q, 2, part);
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    out[base + (size_t)part * len + i] = reduce4(s[i], q);
-}
-
-// Inverse NTT of a row held as two halves, first kernel: every stage that
-// stays inside a half (m = n/2 .. 2); values in [0, 2q) go to `out`.
-__global__ void __launch_bounds__(1024)
-ntt_inv_wide_halves_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-                           const u64* __restrict__ tab, int n, u64 q,
-                           u64 q_barr) {
-  u64* s = smem_row;
-  const int len = n >> 1;
-  const int part = blockIdx.x & 1;
-  const size_t base = (size_t)(blockIdx.x >> 1) * n + (size_t)part * len;
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    s[i] = barrett_canonical(in[base + i], q, q_barr);
-  __syncthreads();
-  inv_stages(s, tab + 2 * n, tab + 3 * n, len, q, 2, part);
-  for (int i = threadIdx.x; i < len; i += blockDim.x) out[base + i] = s[i];
-}
-
-// Second kernel: the last stage (m = 1) across the halves, fused with the
-// n^-1 scaling, in place on `out`; one thread owns both elements it rewrites.
-__global__ void __launch_bounds__(256)
-ntt_inv_wide_last_kernel(u64* __restrict__ out, int n, size_t pairs, u64 q,
-                         u64 inv_n, u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p) {
-  const u64 twice_q = 2 * q;
-  const int half = n >> 1;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < pairs;
-       e += (size_t)gridDim.x * blockDim.x) {
-    const size_t at = (e / half) * n + (e % half);
-    const u64 X = out[at], Y = out[at + half];
-    const u64 tx = cond_sub(X + Y, twice_q);
-    const u64 ty = X + twice_q - Y;
-    out[at] = cond_sub(mul_lazy(tx, inv_n, inv_n_p, q), q);
-    out[at + half] = cond_sub(mul_lazy(ty, inv_n_w, inv_n_w_p, q), q);
-  }
-}
-
 // ---------------------------------------------------------------------------
 // C entries
 // ---------------------------------------------------------------------------
-
-static int threads_for(int n) { return n / 2 < 1024 ? n / 2 : 1024; }
-
-template <typename K>
-static cudaError_t opt_in_smem(K kernel, int n) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, n * (int)sizeof(u64));
-}
 
 // The split kernels: kernel (FWD, TAIL, INV, MAC) at C = parts in {1, 2, 4};
 // nullptr for a (C, n) that no instance serves (a piece must hold 2 values).
@@ -431,35 +356,4 @@ extern "C" int hexl_ntt_split_info(int kernel, int parts, int n, int comp,
   out[4] = smem;
   out[5] = clusters;
   return (int)err;
-}
-
-extern "C" int hexl_ntt_fwd_wide(const void* in, void* out, const void* tab,
-                                 int rows, int n, u64 q, u64 q_barr,
-                                 void* stream) {
-  const int len = n / 2;
-  cudaError_t err = opt_in_smem(ntt_fwd_wide_kernel, len);
-  if (err != cudaSuccess) return (int)err;
-  ntt_fwd_wide_kernel<<<2 * rows, threads_for(len), len * sizeof(u64),
-                        (cudaStream_t)stream>>>(
-      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int hexl_ntt_inv_wide(const void* in, void* out, const void* tab,
-                                 int rows, int n, u64 q, u64 q_barr, u64 inv_n,
-                                 u64 inv_n_p, u64 inv_n_w, u64 inv_n_w_p,
-                                 void* stream) {
-  const int len = n / 2;
-  cudaError_t err = opt_in_smem(ntt_inv_wide_halves_kernel, len);
-  if (err != cudaSuccess) return (int)err;
-  ntt_inv_wide_halves_kernel<<<2 * rows, threads_for(len), len * sizeof(u64),
-                               (cudaStream_t)stream>>>(
-      (const u64*)in, (u64*)out, (const u64*)tab, n, q, q_barr);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const size_t pairs = (size_t)rows * len;
-  ntt_inv_wide_last_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0,
-                             (cudaStream_t)stream>>>(
-      (u64*)out, n, pairs, q, inv_n, inv_n_p, inv_n_w, inv_n_w_p);
-  return (int)cudaGetLastError();
 }

@@ -1,14 +1,14 @@
 // Shared device code of the negacyclic NTT kernels: 64-bit modular
-// primitives, the in-shared-memory Harvey butterfly stages of the wide pair,
-// the split forward core of ntt_fwd / ntt_fwd_tail / ntt_fwd_mac and the split
-// inverse core of ntt_inv.
+// primitives, the split forward core of ntt_fwd / ntt_fwd_tail / ntt_fwd_mac
+// and the split inverse core of ntt_inv.
 //
-// One thread block owns one polynomial row, resident in dynamic shared
-// memory for all log2(n) stages; or, for a row wider than a block's shared
-// memory, one of its `parts` contiguous pieces, after the stages that cross
-// the pieces were done from device memory (forward) or before they are
-// (inverse).  q, floor(2^64/q) and the tables are runtime arguments, so one
-// build serves every modulus q < 2^62 (4q must fit 64 bits).
+// A row of n values is held by `parts` thread blocks, each with one piece of
+// n/parts values resident in dynamic shared memory for all the stages inside
+// it; the stages that cross the pieces are done while loading from device
+// memory.  A row of n <= 16384 may take one block (128 KB); a row of 32768
+// values (256 KB, more than a block's 227 KB) takes 2 or 4.  q, floor(2^64/q)
+// and the tables are runtime arguments, so one build serves every modulus
+// q < 2^62 (4q must fit 64 bits).
 #pragma once
 
 typedef unsigned long long u64;
@@ -35,70 +35,6 @@ __device__ __forceinline__ u64 reduce4(u64 x, u64 q) {
   return cond_sub(cond_sub(x, 2 * q), q);
 }
 
-// Forward (Cooley-Tukey, natural in -> bit-reversed out) stages on `len`
-// values in shared memory: the whole row (parts = 1, part = 0), or piece
-// `part` of a row of parts * len, whose stages m < parts the caller has done
-// already.  Stage m of the whole row is stage m / parts here, and its
-// butterfly group j lies in piece part at position j - part * m / parts, so
-// with ml = m / parts the twiddle index m + j is (parts + part) * ml + jl.
-// Input values < 4q; every stage keeps them < 4q.  `w`/`wp` are the
-// bit-reversed root powers and their precons (twiddles.NttTables.fwd /
-// fwd_precon).  The caller has synchronised after filling `s`; the function
-// returns synchronised.
-__device__ __forceinline__ void fwd_stages(u64* s, const u64* __restrict__ w,
-                                           const u64* __restrict__ wp, int len,
-                                           u64 q, int parts, int part) {
-  const u64 twice_q = 2 * q;
-  const int half = len >> 1;
-  const int tw = parts + part;
-  int log_t = 31 - __clz(half);
-  for (int ml = 1; ml < len; ml <<= 1, --log_t) {
-    const int t = 1 << log_t;
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      const int j = i >> log_t;      // butterfly group inside the piece
-      const int k = i & (t - 1);     // offset inside the group
-      const int ix = 2 * i - k;      // = j * 2t + k
-      const u64 W = w[tw * ml + j], Wp = wp[tw * ml + j];
-      const u64 tx = cond_sub(s[ix], twice_q);
-      const u64 T = mul_lazy(s[ix + t], W, Wp, q);
-      s[ix] = tx + T;
-      s[ix + t] = tx + twice_q - T;
-    }
-    __syncthreads();
-  }
-}
-
-// Inverse (Gentleman-Sande, bit-reversed in -> natural out) stages on `len`
-// values in shared memory, values staying in [0, 2q): all stages inside piece
-// `part` of a row of n = parts * len contiguous values (parts > 1; the wide
-// kernel's halves), stage ml here being the row's stage m = parts * ml; the
-// stages that cross pieces are the caller's.  `w`/`wp` are the scan-order
-// inverse root powers with the leading 1 (NttTables.inv / inv_precon): stage
-// m of the whole row starts at index n - 2m + 1, and group j of it is group
-// j - part * m / parts of the piece.
-__device__ __forceinline__ void inv_stages(u64* s, const u64* __restrict__ w,
-                                           const u64* __restrict__ wp, int len,
-                                           u64 q, int parts, int part) {
-  const u64 twice_q = 2 * q;
-  const int half = len >> 1;
-  const int n = parts * len;
-  int log_t = 0;
-  for (int ml = half; ml >= 1; ml >>= 1, ++log_t) {
-    const int t = 1 << log_t;
-    const int root = n - 2 * parts * ml + 1 + part * ml;
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      const int j = i >> log_t;
-      const int k = i & (t - 1);
-      const int ix = 2 * i - k;
-      const u64 W = w[root + j], Wp = wp[root + j];
-      const u64 X = s[ix], Y = s[ix + t];
-      s[ix] = cond_sub(X + Y, twice_q);
-      s[ix + t] = mul_lazy(X + twice_q - Y, W, Wp, q);
-    }
-    __syncthreads();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // Split forward core of ntt_fwd and ntt_fwd_tail.
 //
@@ -123,9 +59,8 @@ __device__ __forceinline__ void inv_stages(u64* s, const u64* __restrict__ w,
 //    A pass loads its 2^r - 1 twiddles once per sub-network.  Shared memory is padded by one u64 every 16 (`spad`) so
 //    the strided accesses of the late passes spread over the banks.
 //
-// The butterfly is fwd_stages' own (cond_sub by 2q, mul_lazy, values in
-// [0, 4q)): every butterfly sees the same inputs in any schedule, so the
-// output is bit-identical to fwd_stages and to the plain versions.
+// The butterfly (cond_sub by 2q, mul_lazy, values in [0, 4q)) sees the same
+// inputs in any schedule, so every C gives the bits of the plain versions.
 // ---------------------------------------------------------------------------
 
 // stages per register pass (2 and 4 measured slower at the paths' shapes)
@@ -171,7 +106,7 @@ __device__ __forceinline__ void fwd_subnet(u64 (&v)[1 << r],
 // first-stage group g = u >> log_s and offset o = u & (s - 1), s = 2^log_s
 // being the stride of its last stage; its values sit at (g * 2^r + k) * s + o.
 // `tw` = parts + part: the piece's group g of stage e0 takes twiddle
-// tw * 2^e0 + g (fwd_stages' index).  Each thread rewrites only the values it
+// tw * 2^e0 + g (stage m of the row takes twiddle m + its group).  Each thread rewrites only the values it
 // read; the caller synchronises after the pass.
 template <int r>
 __device__ __forceinline__ void fwd_pass(u64* s, const u64* __restrict__ w,
@@ -311,7 +246,8 @@ __device__ __forceinline__ void fwd_split(u64* s, const u64* __restrict__ row,
 //    piece) and keeps its own value; the extra reads are L2 hits.
 //  * Twiddles.  A piece's stage of distance t has the row's m = n / 2t
 //    groups, and its group j is the row's group j, so it takes the row's
-//    twiddles n - 2m + 1 + j (inv_stages' index at parts = 1).
+//    twiddles n - 2m + 1 + j (the scan-order inverse table: stage m starts
+//    at n - 2m + 1).
 //  * Barriers.  As in fwd_split: closed sub-networks of 2^r values in
 //    registers, r <= SPLIT_R stages per shared-memory exchange, 2^r - 1
 //    twiddles loaded once per sub-network, `spad` padding.  The load (the
@@ -324,9 +260,8 @@ __device__ __forceinline__ void fwd_split(u64* s, const u64* __restrict__ row,
 //    n^-1 * W_last; the last pass stores canonical values straight to device
 //    memory, strided by C (index C * k + c).
 //
-// The butterfly is inv_stages' own (cond_sub by 2q, mul_lazy, values in
-// [0, 2q)), so every schedule gives the bits of the one-block kernel and of
-// the plain versions.
+// The butterfly (cond_sub by 2q, mul_lazy, values in [0, 2q)) is the same in
+// every schedule, so every C gives the bits of the plain versions.
 // ---------------------------------------------------------------------------
 
 struct InvScale {

@@ -396,12 +396,13 @@ class KeySwitchContext:
     def dispatch_batch(self, results, t_targets, k_switch_keys,
                        modswitch_factors) -> torch.Tensor:
         """Stage + launch without waiting for the device; returns the
-        (B, comp, L, n) int64 tensor on self.device.  The scheduler copies
-        the PREVIOUS batch back to the host while this one computes."""
+        (B, comp, L, n) int64 tensor on self.device.  results / t_targets
+        are host arrays or handles already staged (the executor uploads on
+        its copy stream).  The scheduler copies the PREVIOUS batch back to
+        the host while this one computes."""
         if self.wire_pack_enabled():
             raise NotImplementedError(f"HEXL_TPU_WIRE_PACK: {_NOT_PORTED}")
-        t = self.stage_target(t_targets)
-        r = self.stage_ciphertext(results)
+        r, t = self._handles(results, t_targets)
         keys, kp = self.device_keys(k_switch_keys)
         return self._build(t.data, keys, kp, r.data,
                            self.prepare_msf4(modswitch_factors))

@@ -19,15 +19,11 @@ each with its plain PyTorch version and launch counters beside it:
 `ntt_fwd` and `ntt_inv` are also the counterpart of the batched butterfly
 kernels of `hexl_fpga_tpu/ops/ntt_pallas.py` (`_fwd_kernel`, `_inv_kernel`:
 canonical in, canonical out, all stages on chip), the standalone transform
-behind `api._NTT` / `api._INTT`.  They choose their kernel by n (`route`): up
-to n = 16384 a row fits one block's shared memory (kernels `ntt_fwd`,
-`ntt_inv`); at n = 32768 it does not, and the kernels `ntt_fwd_wide` /
-`ntt_inv_wide` split the row in two halves, one block each, with the one stage
-that crosses the halves done from device memory.  The plain versions split
-the same way, so the split's index arithmetic is tested on the CPU.  Tables
-come from `modulus_tables` (built from a 2n-th root) or from
-`caller_fwd_tables` / `caller_inv_tables` (a caller's own arrays, used as
-given).
+behind `api._NTT` / `api._INTT`, at every n up to 32768: a row of 32768
+values does not fit one block's shared memory, so it takes C = 2 or 4 pieces
+(`split_candidates`), as a shorter row may.  Tables come from
+`modulus_tables` (built from a 2n-th root) or from `caller_fwd_tables` /
+`caller_inv_tables` (a caller's own arrays, used as given).
 
 What bounds them on an H100: by the count, bytes and multiplies are within a
 factor of two of each other.  A coefficient moves 16 bytes (32 in the tail)
@@ -37,16 +33,15 @@ integer rate, those three come out bytes-bound, the transforms by a few percent
 only, and `ntt_fwd_mac`, which writes comp*B rows for L*B read and adds comp
 lazy multiplies per coefficient, operations-bound (`chip_smoke.py` computes
 both sides for each).  All run several times above that bound (times in
-`PERF.md`).  Up to n = 16384 the four keyswitch kernels run the split cores
-of `csrc/ntt_kernels.cuh`: a row over `parts` blocks so the grid fills the
+`PERF.md`).  The four kernels run the split cores of
+`csrc/ntt_kernels.cuh`: a row over `parts` blocks so the grid fills the
 132 SMs, several butterfly stages per barrier in registers, the stages that
 cross the pieces done while loading (forward: contiguous pieces; inverse:
 strided ones).  `row_split` chooses the parts from (rows, n) and the kernel's
 own blocks per SM; `ntt_fwd_mac` sums its source limbs in shared memory over
 a cluster of blocks (`mac_split`), with no atomics, and stores each output
 once.  The plain versions split the row the same way, so the splits' index
-arithmetic is tested on the CPU.  The wide pair keeps a half row in one block
-with a barrier per stage.  Device memory is touched once each way (the
+arithmetic is tested on the CPU.  Device memory is touched once each way (the
 crossing stages re-read the input from L2), and q, floor(2^64/q), fix and the
 modswitch factor are runtime arguments, so one build serves every modulus.
 
@@ -71,8 +66,7 @@ from . import _build, nt, twiddles, word64 as w
 
 # launches per kernel since the last reset; a wrapper adds one exactly where
 # it launches its kernel
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0,
-            "ntt_fwd_wide": 0, "ntt_inv_wide": 0, "ntt_fwd_mac": 0}
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "ntt_fwd_mac": 0}
 _launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
 
 KERNEL_SOURCE = "ntt_kernels.cu"
@@ -90,24 +84,17 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 
-# one block's dynamic shared memory on sm_90, in u64 values
-_SMEM_VALUES = 232448 // 8
+# the largest n of the kernels' callers (`_NTT` / `_INTT`, api.py); a row of
+# MAX_N values takes 2 or 4 blocks (split_candidates)
+MAX_N = 32768
 
 
-def route(n: int) -> str:
-    """Which kernels serve a row of n values on the card: "row" (the row in
-    one block's shared memory) or "wide" (two halves, one block each).  Raises
-    for an n that no kernel serves."""
-    if not (nt.is_power_of_two(n) and n >= 4):
-        raise ValueError(f"n must be a power of two >= 4, got {n}")
-    if n <= _SMEM_VALUES:
-        return "row"
-    if n // 2 <= _SMEM_VALUES:
-        return "wide"
-    raise ValueError(
-        f"no NTT kernel serves n = {n}: a row must fit one block's shared "
-        f"memory whole (n <= 16384) or in two halves (n = 32768)"
-    )
+def _check_n(n: int) -> None:
+    if not (nt.is_power_of_two(n) and 4 <= n <= MAX_N):
+        raise ValueError(
+            f"no NTT kernel serves n = {n}: n must be a power of two in "
+            f"[4, {MAX_N}]"
+        )
 
 
 @dataclass(frozen=True, eq=False)
@@ -128,7 +115,7 @@ class ModulusTables:
 
 
 def _check_n_q(n: int, q: int) -> None:
-    route(n)
+    _check_n(n)
     if not 2 < q < (1 << 62):
         raise ValueError("the butterflies need 4q < 2^64: q must be below 2^62")
 
@@ -294,13 +281,20 @@ def split_blocks_per_sm(n: int, parts: int, kernel: str = "ntt_fwd") -> int:
         _SM_THREADS // threads, _SM_REGS // regs, 32))
 
 
+def piece_fits(n: int, parts: int) -> bool:
+    """A piece of n/parts values fits one block's shared memory (at
+    n = 32768 not the whole row: 278,520 bytes)."""
+    return _piece_smem(n // parts) <= _BLOCK_SMEM
+
+
 def split_candidates(n: int, kernel: str = "ntt_fwd") -> list:
-    """The parts a row of n may be split into: 1, and 2 or 4 while each piece
-    still gives a block its full threads (n/parts >= SPLIT_THREADS *
-    2^SPLIT_R values; smaller pieces make smaller blocks, not faster ones);
-    for ntt_fwd_mac only those whose piece leaves room for one component's
-    accumulators."""
-    cands = [p for p in (1, 2, 4) if p == 1 or n // p >= SPLIT_THREADS << SPLIT_R]
+    """The parts a row of n may be split into: of those whose piece fits one
+    block's shared memory, 1, and 2 or 4 while each piece still gives a block
+    its full threads (n/parts >= SPLIT_THREADS * 2^SPLIT_R values; smaller
+    pieces make smaller blocks, not faster ones); for ntt_fwd_mac only those
+    whose piece leaves room for one component's accumulators."""
+    cands = [p for p in (1, 2, 4) if piece_fits(n, p)
+             and (p == 1 or n // p >= SPLIT_THREADS << SPLIT_R)]
     if kernel == "ntt_fwd_mac":
         cands = [p for p in cands if mac_chunk(n, p, 1) >= 1]
     return cands
@@ -379,12 +373,9 @@ def _lib():
     lib.hexl_ntt_fwd.argtypes = [p, p, p, i, i, u, u, i, p]
     lib.hexl_ntt_inv.argtypes = [p, p, p, i, i, u, u, u, u, u, u, i, p]
     lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, i, p]
-    lib.hexl_ntt_fwd_wide.argtypes = [p, p, p, i, i, u, u, p]
-    lib.hexl_ntt_inv_wide.argtypes = [p, p, p, i, i, u, u, u, u, u, u, p]
     lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u,
                                      i, i, p]
     for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
-               lib.hexl_ntt_fwd_wide, lib.hexl_ntt_inv_wide,
                lib.hexl_ntt_fwd_mac, lib.hexl_ntt_split_info):
         fn.restype = ctypes.c_int
     lib.hexl_ntt_split_info.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
@@ -449,14 +440,14 @@ def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
-                      part: int = 0) -> torch.Tensor:
+def _fwd_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int,
+                      part: int) -> torch.Tensor:
     """Forward stages on rows (R, len) of values < 4q; returns values in
     [0, 4q).  With parts = 1 the rows are whole and these are all stages; with
     parts > 1 they are piece `part` of rows of parts * len whose stages
     m < parts are done, and stage ml here is stage parts * ml of the whole
     row: its twiddles start at (parts + part) * ml (`csrc/ntt_kernels.cuh`,
-    fwd_stages)."""
+    fwd_pass's `tw`)."""
     q = tabs.q
     R, n = x.shape
     fwd, fwd_p = tabs.tab[0], tabs.tab[1]
@@ -480,7 +471,7 @@ def _fwd_split_plain(x: torch.Tensor, tabs: ModulusTables,
     contiguous pieces: the log2(parts) stages that cross the pieces (stage m
     pairs piece c with c + parts/2m under twiddle m + c // (parts/m)), then
     each piece's stages on its own (`csrc/ntt_kernels.cuh`, fwd_cross and
-    fwd_split; the wide kernel is parts = 2)."""
+    fwd_split)."""
     q = tabs.q
     R, n = x.shape
     pieces = list(x.view(R, parts, n // parts).unbind(1))
@@ -506,49 +497,43 @@ def _reduce4(x, q: int):
 
 def _parts(x: torch.Tensor, tabs: ModulusTables, parts, kernel: str) -> int:
     """The parts of a call of a split kernel: a caller's, checked, or the
-    kernel's own row_split; 2 (the wide kernels' halves) at n = 32768."""
-    if parts is not None:
-        if route(tabs.n) == "wide":
-            raise ValueError(f"n = {tabs.n} takes the wide kernel's two halves, "
-                             f"no other split")
-        if parts not in (1, 2, 4) or 2 * parts > tabs.n:
-            raise ValueError(f"parts must be 1, 2 or 4 and at most n/2, got {parts}")
-        return parts
-    if route(tabs.n) == "wide":
-        return 2
-    return row_split(x.shape[0], tabs.n, x.device, kernel)
+    kernel's own row_split."""
+    if parts is None:
+        return row_split(x.shape[0], tabs.n, x.device, kernel)
+    if parts not in (1, 2, 4) or 2 * parts > tabs.n:
+        raise ValueError(f"parts must be 1, 2 or 4 and at most n/2, got {parts}")
+    if not piece_fits(tabs.n, parts):
+        raise ValueError(
+            f"parts = {parts} at n = {tabs.n}: a piece of {tabs.n // parts} "
+            f"values takes {_piece_smem(tabs.n // parts)} bytes, more than one "
+            f"block's {_BLOCK_SMEM} bytes of shared memory")
+    return parts
 
 
 def ntt_fwd_plain(x: torch.Tensor, tabs: ModulusTables,
                   parts: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of ntt_fwd (any device), on the kernel's split:
-    `parts` pieces per row, by default what ntt_fwd launches (row_split, or
-    the wide kernel's two halves).  Every split gives the same bits."""
+    `parts` pieces per row, by default what ntt_fwd launches (row_split).
+    Every split gives the same bits."""
     _check(x, tabs, "ntt_fwd_plain")
     parts = _parts(x, tabs, parts, "ntt_fwd")
     x = w.barrett_canonical(x, tabs.q, tabs.q_barr)
-    x = _fwd_split_plain(x, tabs, parts) if parts > 1 else _fwd_stages_plain(x, tabs)
-    return _reduce4(x, tabs.q)
+    return _reduce4(_fwd_split_plain(x, tabs, parts), tabs.q)
 
 
 def ntt_fwd(x: torch.Tensor, tabs: ModulusTables,
             parts: int | None = None) -> torch.Tensor:
     """Forward negacyclic NTT of each row of x (R, n) int64 under tabs.q:
     NTT(x mod q), bit-reversed order, canonical.  x may hold any u64.
-    `parts` overrides row_split's blocks per row (n <= 16384 only)."""
+    `parts` (1, 2 or 4, a piece fitting one block's shared memory) overrides
+    row_split's blocks per row."""
     _check(x, tabs, "ntt_fwd")
     if x.device.type == "cpu":
         return ntt_fwd_plain(x, tabs, parts)
     parts = _parts(x, tabs, parts, "ntt_fwd")
     out = torch.empty_like(x)
-    if route(tabs.n) == "wide":
-        _launch("ntt_fwd_wide", _lib().hexl_ntt_fwd_wide, x, x.data_ptr(),
-                out.data_ptr(), tabs.tab.data_ptr(), x.shape[0], tabs.n,
-                tabs.q, tabs.q_barr)
-    else:
-        _launch("ntt_fwd", _lib().hexl_ntt_fwd, x, x.data_ptr(), out.data_ptr(),
-                tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr,
-                parts)
+    _launch("ntt_fwd", _lib().hexl_ntt_fwd, x, x.data_ptr(), out.data_ptr(),
+            tabs.tab.data_ptr(), x.shape[0], tabs.n, tabs.q, tabs.q_barr, parts)
     return out
 
 
@@ -573,23 +558,6 @@ def _inv_stage_plain(x: torch.Tensor, tabs: ModulusTables, m: int,
     ).view(R, length)
 
 
-def _inv_stages_plain(x: torch.Tensor, tabs: ModulusTables, parts: int = 1,
-                      part: int = 0) -> torch.Tensor:
-    """Inverse stages on rows (R, len).  With parts = 1: the whole row's
-    stages m = n/2 .. 2 (the last is the caller's).  With parts > 1: all
-    stages inside contiguous piece `part` of rows of n = parts * len (the
-    wide kernel's halves), stage ml here being stage m = parts * ml of the
-    whole row, whose twiddles start at n - 2m + 1 (`csrc/ntt_kernels.cuh`,
-    inv_stages)."""
-    length = x.shape[1]
-    n = parts * length
-    m = length >> 1
-    while m >= (1 if parts > 1 else 2):
-        x = _inv_stage_plain(x, tabs, m, n - 2 * parts * m + 1 + part * m)
-        m >>= 1
-    return x
-
-
 def _inv_split_plain(x: torch.Tensor, tabs: ModulusTables,
                      parts: int) -> torch.Tensor:
     """The split inverse kernel's schedule on canonical rows (R, n): the
@@ -611,26 +579,14 @@ def _inv_split_plain(x: torch.Tensor, tabs: ModulusTables,
 
 
 def ntt_inv_plain(x: torch.Tensor, tabs: ModulusTables,
-                  parts: int | None = None,
-                  halves: bool | None = None) -> torch.Tensor:
+                  parts: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of ntt_inv (any device), on the kernel's split:
     `parts` strided pieces per row, by default what ntt_inv launches
-    (row_split); at n = 32768 the wide kernel's two contiguous halves, which
-    `halves=True` forces at any n.  Every split gives the same bits."""
+    (row_split).  Every split gives the same bits."""
     _check(x, tabs, "ntt_inv_plain", forward=False)
     parts = _parts(x, tabs, parts, "ntt_inv")
-    if halves is None:
-        halves = route(tabs.n) == "wide"
     q, h = tabs.q, tabs.n >> 1
-    x = w.barrett_canonical(x, q, tabs.q_barr)
-    if halves:
-        x = torch.cat(
-            [_inv_stages_plain(x[:, part * h : (part + 1) * h].contiguous(),
-                               tabs, 2, part) for part in range(2)], dim=1)
-    elif parts > 1:
-        x = _inv_split_plain(x, tabs, parts)
-    else:
-        x = _inv_stages_plain(x, tabs)
+    x = _inv_split_plain(w.barrett_canonical(x, q, tabs.q_barr), tabs, parts)
     # last stage fused with the n^-1 scaling
     X, Y = x[:, :h], x[:, h:]
     tx = w.cond_sub64(X + Y, 2 * q)
@@ -645,7 +601,7 @@ def ntt_inv(x: torch.Tensor, tabs: ModulusTables,
     """Inverse negacyclic NTT of each row of x (R, n) int64 under tabs.q:
     bit-reversed in, natural out, scaled by n^-1, canonical.  The canonical
     output matters: callers re-reduce its integer value under other moduli.
-    `parts` overrides row_split's blocks per row (n <= 16384 only)."""
+    `parts` as in ntt_fwd."""
     _check(x, tabs, "ntt_inv", forward=False)
     if x.device.type == "cpu":
         return ntt_inv_plain(x, tabs, parts)
@@ -654,10 +610,7 @@ def ntt_inv(x: torch.Tensor, tabs: ModulusTables,
     args = (x.data_ptr(), out.data_ptr(), tabs.tab.data_ptr(), x.shape[0],
             tabs.n, tabs.q, tabs.q_barr, tabs.inv_n, tabs.inv_n_precon,
             tabs.inv_n_w, tabs.inv_n_w_precon)
-    if route(tabs.n) == "wide":
-        _launch("ntt_inv_wide", _lib().hexl_ntt_inv_wide, x, *args)
-    else:
-        _launch("ntt_inv", _lib().hexl_ntt_inv, x, *args, parts)
+    _launch("ntt_inv", _lib().hexl_ntt_inv, x, *args, parts)
     return out
 
 
@@ -673,8 +626,7 @@ def ntt_fwd_tail_plain(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
     for name, x in (("e", e), ("acc", acc), ("res", res)):
         _check(x, tabs, f"ntt_fwd_tail_plain({name})")
     q = tabs.q
-    if parts is None and route(tabs.n) == "row":
-        parts = row_split(e.shape[0], tabs.n, e.device, "ntt_fwd_tail")
+    parts = _parts(e, tabs, parts, "ntt_fwd_tail")
     g = ntt_fwd_plain(w.add64(e, fix), tabs, parts)
     a = w.barrett_canonical(acc, q, tabs.q_barr)
     t1 = w.reduce_mod_factor(w.add64(w.sub64(a, g), 4 * q), q, 8)
@@ -700,11 +652,6 @@ def ntt_fwd_tail(e, acc, res, tabs: ModulusTables, fix: int, msf: int,
         raise ValueError("ntt_fwd_tail: e, acc, res must share one shape")
     if e.device.type == "cpu":
         return ntt_fwd_tail_plain(e, acc, res, tabs, fix, msf, msf_precon, parts)
-    if route(tabs.n) != "row":
-        raise ValueError(
-            f"ntt_fwd_tail: no kernel serves n = {tabs.n} (a row must fit one "
-            f"block's shared memory, n <= 16384)"
-        )
     parts = _parts(e, tabs, parts, "ntt_fwd_tail")
     out = torch.empty_like(e)
     _launch("ntt_fwd_tail", _lib().hexl_ntt_fwd_tail, e, e.data_ptr(),
@@ -781,7 +728,7 @@ def ntt_fwd_mac_plain(data, keys, kp, j: int, tabs: ModulusTables,
     the limbs has no counterpart here)."""
     L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i,
                                "ntt_fwd_mac_plain")
-    if parts is None and route(tabs.n) == "row":
+    if parts is None:
         parts = mac_split(B, L - (skip_i is not None), tabs.n, data.device)[0]
     val = ntt_fwd_plain(data, tabs, parts).view(L, 1, B, tabs.n)
     terms = w.mul_mod_lazy(val, keys[:, :, j, None, :], kp[:, :, j, None, :],
@@ -805,15 +752,8 @@ def ntt_fwd_mac(data, keys, kp, j: int, tabs: ModulusTables,
     wrapping u64 sum of terms in [0, 2q), so out < 2*L*q.  skip_i names the
     identity limb whose term the caller adds itself; it needs L >= 2.
     `parts` (blocks per row) and `cluster` (blocks that share the limbs)
-    override mac_split's launch shape (n <= 16384 only)."""
+    override mac_split's launch shape."""
     L, comp, K, B = _check_mac(data, keys, kp, j, tabs, skip_i, "ntt_fwd_mac")
-    if route(tabs.n) != "row":
-        if data.device.type == "cpu":
-            return ntt_fwd_mac_plain(data, keys, kp, j, tabs, skip_i, parts)
-        raise ValueError(
-            f"ntt_fwd_mac: no kernel serves n = {tabs.n} (a row must fit one "
-            f"block's shared memory, n <= 16384)"
-        )
     parts, cluster = _mac_shape(data, tabs, B, L - (skip_i is not None), parts,
                                 cluster)
     if data.device.type == "cpu":

@@ -49,6 +49,17 @@ def to_u64_np(x: torch.Tensor) -> np.ndarray:
     return x.cpu().contiguous().numpy().view(np.uint64)
 
 
+def to_host_async(x: torch.Tensor) -> torch.Tensor:
+    """A CUDA tensor -> a CPU tensor of the same values, copied on the
+    current stream into pinned memory without blocking the host: read it only
+    after an event recorded behind the copy has completed.  A CPU tensor is
+    returned as it is."""
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x, non_blocking=True)
+
+
 def to_pair_np(a) -> Tuple[np.ndarray, np.ndarray]:
     a = np.asarray(a, dtype=np.uint64)
     return (a & _U32).astype(np.uint32), (a >> np.uint64(32)).astype(np.uint32)

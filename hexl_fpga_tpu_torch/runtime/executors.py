@@ -85,10 +85,31 @@ class GoldenExecutor(_Base):
             np.copyto(a["result"], out.reshape(a["result"].shape))
 
 
+def _scatter_to(batch, key: str):
+    """scatter(host): row b of a batch's u64 result into batch[b]'s caller
+    buffer args[key], in place."""
+
+    def scatter(host):
+        host = host.reshape(len(batch), -1)
+        for b, item in enumerate(batch):
+            np.copyto(item.args[key], host[b].reshape(item.args[key].shape))
+
+    return scatter
+
+
 class TorchExecutor(_Base):
-    """torch backend (RUN_CHOICE=1 on the CPU, =2 on CUDA)."""
+    """torch backend (RUN_CHOICE=1 on the CPU, =2 on CUDA).
+
+    On CUDA a batch's copies and its body go to two streams, ordered by
+    events, so the worker's overlap of finalize(i-1) with batch i happens on
+    the card: the upload of batch i goes to this executor's copy stream and
+    waits for no body; the body runs on the thread's current (compute)
+    stream after the upload's event; the copy back of batch i-1 waits for
+    its own body's event alone and runs on the copy stream while body i
+    computes.  On the CPU there are no streams."""
 
     def __init__(self, device_index: int, force_cpu: bool):
+        self.copy_stream = None
         if force_cpu:
             self.device = torch.device("cpu")
         elif not torch.cuda.is_available():
@@ -100,11 +121,79 @@ class TorchExecutor(_Base):
             self.device = torch.device(
                 "cuda", device_index % torch.cuda.device_count()
             )
+            self.copy_stream = torch.cuda.Stream(self.device)
+        # queues the copy back of the last batch submitted (once)
+        self._queue_copy_back = lambda: None
+        # while a list: each CUDA batch appends its timing events (body
+        # start, body end, copy-back start, copy-back end); chip_smoke.py
+        # reads the copy-back's overlap with the next body from them
+        self.timeline = None
 
     def bind_thread(self) -> None:
         """Make this executor's device the calling thread's current one."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+
+    def _submit(self, stage, body, scatter):
+        """One batch, split into submit and the returned finalize: stage()
+        uploads the batch's host arrays and returns the device tensors,
+        body(*tensors) computes the device result, scatter(host) writes the
+        u64 numpy result into the caller's buffers.
+
+        The copy back is queued behind the next batch's upload and ahead of
+        its body (or by finalize, whichever comes first): a body is a few
+        hundred launches that the card runs as fast as the host enqueues
+        them, so a copy queued only once finalize runs, after the next body's
+        launches, would find that body all but done.  It goes into pinned
+        memory without blocking the host; finalize waits for its event."""
+        copy = self.copy_stream
+        if copy is None:
+            out = body(*stage())
+            return lambda: scatter(w.to_u64_np(out))
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(copy):
+            staged = stage()
+            uploaded = torch.cuda.Event()
+            uploaded.record()
+        compute.wait_event(uploaded)
+        for x in staged:  # freed while the body may still read it
+            x.record_stream(compute)
+        self._queue_copy_back()  # the previous batch's
+        marks = None
+        if self.timeline is not None:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            self.timeline.append(marks)
+            marks[0].record(compute)
+        out = body(*staged)
+        computed = marks[1] if marks else torch.cuda.Event()
+        computed.record(compute)
+        copied = []  # (host tensor, event behind its copy) once queued
+
+        def queue_copy_back():
+            if copied:
+                return
+            copy.wait_event(computed)
+            with torch.cuda.stream(copy):
+                if marks:
+                    marks[2].record()
+                host = w.to_host_async(out)
+                done = marks[3] if marks else torch.cuda.Event()
+                done.record()
+            copied.append((host, done))
+
+        self._queue_copy_back = queue_copy_back
+
+        def finalize():
+            queue_copy_back()
+            host, done = copied[0]
+            # `out` stays referenced (by queue_copy_back) until the copy
+            # has landed; then the executor lets it go
+            done.synchronize()
+            if self._queue_copy_back is queue_copy_back:
+                self._queue_copy_back = lambda: None
+            scatter(host.numpy().view(np.uint64))
+
+        return finalize
 
     def submit_dyadic_multiply(self, batch):
         # fences keep a batch to one (n, n_moduli, moduli); one kernel serves
@@ -113,24 +202,14 @@ class TorchExecutor(_Base):
         a = batch[0].args
         n, M = a["n"], a["n_moduli"]
         runner = dyadic_cuda.runner(np.asarray(a["moduli"])[:M], self.device)
-        op1, op2 = (
-            w.from_u64_np(
-                np.stack([np.asarray(i.args[key], dtype=np.uint64).reshape(2, M, n)
-                          for i in batch]),
-                self.device,
-            )
-            for key in ("operand1", "operand2")
-        )
-        out = runner.run(op1, op2)
+        ops = [np.stack([np.asarray(i.args[key], dtype=np.uint64).reshape(2, M, n)
+                         for i in batch])
+               for key in ("operand1", "operand2")]
 
-        def finalize():
-            # the blocking device->host copy
-            host = w.to_u64_np(out).reshape(len(batch), -1)
-            for b, item in enumerate(batch):
-                np.copyto(item.args["results"],
-                          host[b].reshape(item.args["results"].shape))
+        def stage():
+            return tuple(w.from_u64_np(x, self.device) for x in ops)
 
-        return finalize
+        return self._submit(stage, runner.run, _scatter_to(batch, "results"))
 
     def run_dyadic_multiply(self, batch):
         self.submit_dyadic_multiply(batch)()
@@ -139,18 +218,13 @@ class TorchExecutor(_Base):
         """Shared submit/finalize split of the worksize-batched `_NTT` /
         `_INTT` streams: stack the operands, launch, and leave the copy back
         into the caller's operand buffers (in place) to finalize."""
-        x = w.from_u64_np(
-            np.stack([np.asarray(i.args["operand"], dtype=np.uint64) for i in batch]),
-            self.device,
-        )
-        out = transform(x, tabs)
+        x = np.stack([np.asarray(i.args["operand"], dtype=np.uint64) for i in batch])
 
-        def finalize():
-            host = w.to_u64_np(out)
-            for b, item in enumerate(batch):
-                np.copyto(item.args["operand"], host[b])
+        def stage():
+            return (w.from_u64_np(x, self.device),)
 
-        return finalize
+        return self._submit(stage, lambda x: transform(x, tabs),
+                            _scatter_to(batch, "operand"))
 
     def submit_ntt(self, batch):
         # the caller's tables are used as given (cached on the device by
@@ -195,18 +269,18 @@ class TorchExecutor(_Base):
         rs = np.stack(
             [np.asarray(i.args["result"], dtype=np.uint64).ravel() for i in batch]
         )
-        out = ctx.dispatch_batch(
-            rs, ts, a["k_switch_keys"], a["modswitch_factors"]
-        )
 
-        def finalize():
-            # the blocking device->host copy
-            host = w.to_u64_np(out).reshape(len(batch), -1)
-            for b, item in enumerate(batch):
-                np.copyto(item.args["result"],
-                          host[b].reshape(item.args["result"].shape))
+        def stage():  # the handles' own uploads
+            return ctx.stage_ciphertext(rs).data, ctx.stage_target(ts).data
 
-        return finalize
+        def body(r, t):
+            return ctx.dispatch_batch(
+                keyswitch_cuda.DeviceCiphertext(r, ctx),
+                keyswitch_cuda.DeviceTarget(t, ctx),
+                a["k_switch_keys"], a["modswitch_factors"],
+            )
+
+        return self._submit(stage, body, _scatter_to(batch, "result"))
 
     def run_keyswitch(self, batch):
         self.submit_keyswitch(batch)()

@@ -13,9 +13,10 @@ bits (batch 32) and for _NTT / _INTT at n = 16384 under a 52-bit prime (batch
                  synchronise; the second pass is reported;
   api            torch.profiler over the whole call sequence through the
                  public API (64 DyadicMultiply ops; `ops` _NTT then `ops`
-                 _INTT ops): the window, the device's busy time and idle
-                 share, the port's kernels' time, and the largest other rows
-                 (the copies).
+                 _INTT ops): the window, the device's busy time (the union
+                 of the kernels' and copies' spans; their sum beside it) and
+                 idle share, the port's kernels' time, and the largest other
+                 rows (the copies).
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ import torch.profiler
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
 from hexl_fpga_tpu_torch.ops import dyadic_cuda, nt, ntt_cuda, twiddles, word64 as w
-from hexl_fpga_tpu_torch.utils.profile_keyswitch import device_rows, wall_ms
+from hexl_fpga_tpu_torch.utils.profile_keyswitch import (
+    device_busy_ms, device_rows, wall_ms,
+)
 
 KERNEL_WORDS = ("dyadic_mul_kernel", "ntt_fwd", "ntt_inv")
 ACTS = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -42,12 +45,17 @@ def host_steps(sources, stack, body, dests):
     """The executor's steps for one batch, one by one; `sources` are the
     caller's arrays, `dests` makes the buffers the results are scattered to."""
     for _ in range(2):
+        # the last pass's pinned buffer goes back to torch's host allocator
+        # first, so this pass reuses it as the executor's batches do
+        host = None
         steps = {}
         stacked, steps["stack"] = wall_ms(lambda: stack(sources))
         dev, steps["host_to_device"] = wall_ms(
             lambda: [w.from_u64_np(a, "cuda") for a in stacked])
         out, steps["device_body"] = wall_ms(lambda: body(*dev))
-        host, steps["device_to_host"] = wall_ms(lambda: w.to_u64_np(out))
+        # the executor's copy back: into pinned memory, off the host
+        host, steps["device_to_host"] = wall_ms(lambda: w.to_host_async(out))
+        host = host.numpy().view(np.uint64)
         dst = dests()
         _, steps["scatter"] = wall_ms(lambda: [
             np.copyto(d, host[b].reshape(d.shape)) for b, d in enumerate(dst)])
@@ -61,12 +69,13 @@ def api_trace(run, ops):
     with torch.profiler.profile(activities=ACTS) as prof:
         _, window = wall_ms(run)
     rows = device_rows(prof)
-    busy = sum(rows.values())
+    busy = device_busy_ms(prof)
     ours = {k: v for k, v in rows.items() if any(x in k for x in KERNEL_WORDS)}
     rest = sorted(((v, k) for k, v in rows.items() if k not in ours), reverse=True)
     return {
         "ops": ops, "window_ms": window, "ops_per_s": ops / window * 1e3,
-        "device_busy_ms": busy, "device_idle_share": 1 - busy / window,
+        "device_busy_ms": busy, "device_time_sum_ms": sum(rows.values()),
+        "device_idle_share": 1 - busy / window,
         "kernels_ms": ours, "largest_other_ms": {k: v for v, k in rest[:4]},
     }
 

@@ -7,15 +7,17 @@ ntt_fwd_mac it prints one JSON object per line:
 
   ptxas     the compiler's registers / spills lines of the split kernels;
   info      registers, local bytes, threads, resident blocks per SM and
-            shared memory of each parts at n = 16384, and for ntt_fwd_mac
-            the clusters the card runs at once (hexl_ntt_split_info);
+            shared memory of each parts at n = 16384 and 32768, and for
+            ntt_fwd_mac the clusters the card runs at once
+            (hexl_ntt_split_info);
   chosen    the launch shape `ntt_cuda.row_split` / `mac_split` takes for a
             shape on this card;
   time      for each shape the paths give the kernels and each parts C in
-            {1, 2, 4} (ntt_fwd_mac: each C and each cluster of blocks that
-            share the source limbs): the device time per launch by the
-            profiler and by a CUDA graph of the launches; inputs rotate over
-            more than the 50 MB L2.
+            {1, 2, 4} whose piece fits a block (ntt_fwd_mac: each C and each
+            cluster of blocks that share the source limbs; at n = 32768 the
+            transforms at rows 1, 32 and 256): the device time per launch by
+            the profiler and by a CUDA graph of the launches; inputs rotate
+            over more than the 50 MB L2.
 
 `--quick` times only the shapes of the main path and of the fused-MAC body
 (KeySwitch at 16384_6_7_7_2, batch 32).  The bits of every shape are checked
@@ -91,9 +93,9 @@ def main(argv) -> int:
     n = 16384
     emit({"ptxas": ptxas_lines(_build.build_log(ntt_cuda.KERNEL_SOURCE,
                                                 ntt_cuda.KERNEL_DEPS))})
-    emit({"info": [dict(kernel=k, parts=p, **ntt_cuda.split_info(k, n, p))
-                   for k in ntt_cuda.SPLIT_KERNELS
-                   for p in ntt_cuda.split_candidates(n, k)]})
+    emit({"info": [dict(kernel=k, n=nn, parts=p, **ntt_cuda.split_info(k, nn, p))
+                   for nn in (n, 2 * n) for k in ntt_cuda.SPLIT_KERNELS
+                   for p in ntt_cuda.split_candidates(nn, k)]})
     emit({"info_mac_clusters": [
         dict(parts=p, cluster=c, **ntt_cuda.split_info("ntt_fwd_mac", n, p, cluster=c))
         for p in ntt_cuda.split_candidates(n, "ntt_fwd_mac") for c in (2, 3, 5, 6)]})
@@ -106,6 +108,8 @@ def main(argv) -> int:
         shapes += [("ntt_fwd", 256, n), ("ntt_inv", 256, n), ("ntt_fwd", 32, n),
                    ("ntt_fwd", 64, n), ("ntt_fwd", 256, 4096), ("ntt_inv", 256, 4096),
                    ("ntt_fwd", 256, 1024), ("ntt_inv", 256, 1024)]
+        shapes += [(k, rows, 2 * n) for rows in (1, 32, 256)
+                   for k in ("ntt_fwd", "ntt_inv")]
     for kernel, rows, nn in shapes:
         q = int(nt.generate_primes(1, 50, nn)[0])
         tabs = ntt_cuda.modulus_tables(nn, q, device=device)
@@ -119,7 +123,7 @@ def main(argv) -> int:
         emit({"chosen": {"kernel": kernel, "rows": rows, "n": nn,
                          "parts": ntt_cuda.row_split(rows, nn, device, kernel)}})
         for parts in PARTS:
-            if 2 * parts > nn:
+            if 2 * parts > nn or not ntt_cuda.piece_fits(nn, parts):
                 continue
             if kernel == "ntt_fwd":
                 def fn(parts=parts):

@@ -1,9 +1,11 @@
 """The standalone transform pair of the port: the plain versions of
-`ntt_fwd` / `ntt_inv` (row and two-halves schedules, built and caller tables)
-vs the batched butterfly Pallas kernels of `ntt_pallas` (interpret mode), the
+`ntt_fwd` / `ntt_inv` (the kernels' splits up to n = 32768, built and caller
+tables) vs the batched butterfly Pallas kernels of `ntt_pallas` (interpret mode), the
 XLA tier with caller tables and the golden model; and the deprecated
 `_NTT` / `_INTT` API section as a whole vs the JAX package's, both under
 RUN_CHOICE=1 on the same buffers.  Tolerance: zero."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -91,39 +93,46 @@ def test_caller_tables_are_cached_by_content_and_one_directional():
         ntt_cuda.caller_inv_tables(64, q, t.inv, t.inv_precon, q, t.inv_n_w)
 
 
-@pytest.mark.parametrize("n,bits", [(8, 20), (64, 30), (2048, 61)])
-def test_two_halves_schedule_at_small_n(n, bits):
-    """The wide kernels' split (one crossing stage, then each half alone with
-    offset twiddles), forced at sizes the CPU takes in no time."""
-    q = int(nt.generate_primes(1, bits, n)[0])
-    rng = np.random.default_rng(n)
-    a = rng.integers(0, 1 << 64, size=(3, n), dtype=np.uint64)
+WIDE = 32768  # a row of it takes 2 or 4 blocks, never one
+
+
+@functools.lru_cache(maxsize=None)
+def wide_case():
+    """(q, tables, 2 rows of any u64 with a canonical first row, the rows
+    mod q, golden forward and inverse of them) at n = 32768, under a root
+    that is not the minimal one."""
+    q = int(nt.generate_primes(1, 61, WIDE)[0])
+    psi = other_root(WIDE, q, 3)
+    rng = np.random.default_rng(WIDE)
+    a = rng.integers(0, 1 << 64, size=(2, WIDE), dtype=np.uint64)
     a[0] %= np.uint64(q)
     red = a % np.uint64(q)
-    for tabs, gt in ((ntt_cuda.modulus_tables(n, q), None),
-                     (ntt_cuda.modulus_tables(n, q, other_root(n, q, 3)),
-                      twiddles.ntt_tables(n, q, other_root(n, q, 3)))):
-        f = run_port(ntt_cuda.ntt_fwd_plain, a, tabs, 2)  # parts
-        np.testing.assert_array_equal(f, golden.fwd_ntt(red, q, gt))
-        np.testing.assert_array_equal(f, run_port(ntt_cuda.ntt_fwd_plain, a, tabs, 1))
-        i = run_port(ntt_cuda.ntt_inv_plain, a, tabs, None, True)  # halves
-        np.testing.assert_array_equal(i, golden.inv_ntt(red, q, gt))
-        np.testing.assert_array_equal(i, run_port(ntt_cuda.ntt_inv_plain, a, tabs, 1))
+    gt = twiddles.ntt_tables(WIDE, q, psi)
+    return (q, ntt_cuda.modulus_tables(WIDE, q, psi), a, red,
+            golden.fwd_ntt(red, q, gt), golden.inv_ntt(red, q, gt))
 
 
-def test_route_by_n_and_no_kernel_beyond():
-    """n = 32768 goes to the wide kernels, never to a plain version; an n no
-    kernel serves is refused with a message, on any device."""
-    assert [ntt_cuda.route(n) for n in (4, 1024, 16384)] == ["row"] * 3
-    assert ntt_cuda.route(32768) == "wide"
-    for n in (65536, 3, 1000):
-        with pytest.raises(ValueError, match="n"):
-            ntt_cuda.route(n)
-    with pytest.raises(ValueError, match="no NTT kernel serves n = 65536"):
-        ntt_cuda.modulus_tables(65536, 1152921504606584833)
+@pytest.mark.parametrize("direction", ["fwd", "inv"])
+@pytest.mark.parametrize("parts", [2, 4])
+def test_split_schedule_at_n_32768(direction, parts):
+    """The kernels' split at n = 32768 (pieces of 16384 and 8192 values, log2
+    of a piece 14 and 13): the plain versions against the golden model and
+    against the other C."""
+    q, tabs, a, red, want_fwd, want_inv = wide_case()
+    fn = ntt_cuda.ntt_fwd_plain if direction == "fwd" else ntt_cuda.ntt_inv_plain
+    got = run_port(fn, a, tabs, parts)
+    np.testing.assert_array_equal(got, want_fwd if direction == "fwd" else want_inv)
+    np.testing.assert_array_equal(got, run_port(fn, a, tabs, 8 // parts))
+
+
+def test_n_beyond_the_kernels_is_refused():
+    """n must be a power of two from 4 to 32768, on any device; four kernels
+    count their launches."""
+    for n in (65536, 3, 1000, 2):
+        with pytest.raises(ValueError, match=f"no NTT kernel serves n = {n}"):
+            ntt_cuda.modulus_tables(n, 1152921504606584833)
     assert set(ntt_cuda.LAUNCHES) == {
-        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_wide", "ntt_inv_wide",
-        "ntt_fwd_mac"}
+        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac"}
 
 
 # -- the API section ----------------------------------------------------------

@@ -104,12 +104,14 @@ def test_inverse_row_split_at_the_paths_shapes():
 
 
 def test_forced_inverse_split_is_checked():
-    """A caller's parts must be 1, 2 or 4 and at most n/2; n = 32768 takes
-    only the wide kernel's two halves."""
+    """A caller's parts must be 1, 2 or 4, at most n/2, and give a piece that
+    fits one block's shared memory: at n = 32768 2 or 4, not 1."""
     q = int(nt.generate_primes(1, 61, 32768)[0])
-    with pytest.raises(ValueError, match="wide kernel"):
-        ntt_cuda.ntt_inv(torch.zeros(1, 32768, dtype=torch.int64),
-                         ntt_cuda.modulus_tables(32768, q), 4)
+    x = torch.zeros(1, 32768, dtype=torch.int64)
+    tabs = ntt_cuda.modulus_tables(32768, q)
+    with pytest.raises(ValueError, match="a piece of 32768 values takes 278520 bytes"):
+        ntt_cuda.ntt_inv(x, tabs, 1)
+    assert torch.equal(ntt_cuda.ntt_inv(x, tabs, 2), x)  # INTT(0) = 0
     with pytest.raises(ValueError, match="parts"):
         ntt_cuda.ntt_inv(torch.zeros(1, 4, dtype=torch.int64),
                          ntt_cuda.modulus_tables(4, 17), 4)

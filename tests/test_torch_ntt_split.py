@@ -115,12 +115,41 @@ def test_row_split_at_the_paths_shapes():
 
 
 def test_forced_split_is_checked():
-    """A caller's parts must be 1, 2 or 4 and at most n/2; n = 32768 takes
-    only the wide kernel's two halves."""
+    """A caller's parts must be 1, 2 or 4, at most n/2, and give a piece that
+    fits one block's shared memory: at n = 32768 2 or 4, not 1."""
     x = torch.zeros(1, 32768, dtype=torch.int64)
     tabs = ntt_cuda.modulus_tables(32768, int(nt.generate_primes(1, 61, 32768)[0]))
-    with pytest.raises(ValueError, match="wide kernel"):
-        ntt_cuda.ntt_fwd(x, tabs, 4)
+    with pytest.raises(ValueError, match="a piece of 32768 values takes 278520 bytes"):
+        ntt_cuda.ntt_fwd(x, tabs, 1)
+    assert torch.equal(ntt_cuda.ntt_fwd(x, tabs, 4), x)  # NTT(0) = 0
     with pytest.raises(ValueError, match="parts"):
         ntt_cuda.ntt_fwd(torch.zeros(1, 64, dtype=torch.int64),
                          ntt_cuda.modulus_tables(64, 257), 3)
+
+
+@pytest.mark.parametrize("rows", (1, 32, 256))
+def test_row_split_at_n_32768(rows):
+    """A row of 32768 values takes 2 or 4 blocks, never one, in both
+    directions; the _NTT path's 32 rows take 4 (128 blocks: one wave of the
+    model's one block an SM), 256 rows 2."""
+    assert ntt_cuda.split_candidates(32768) == [2, 4]
+    assert ntt_cuda.split_candidates(32768, "ntt_inv") == [2, 4]
+    want = {1: 4, 32: 4, 256: 2}[rows]
+    for kernel in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail"):
+        assert ntt_cuda.row_split(rows, 32768, kernel=kernel) == want, kernel
+
+
+@pytest.mark.parametrize("kernel", ("ntt_fwd", "ntt_inv", "ntt_fwd_tail"))
+def test_one_block_a_row_refused_at_n_32768(kernel):
+    """A forced C = 1 at n = 32768 is refused with the piece's size, on any
+    device, before any kernel or plain version runs."""
+    q = int(nt.generate_primes(1, 61, 32768)[0])
+    tabs = ntt_cuda.modulus_tables(32768, q)
+    x = torch.zeros(2, 32768, dtype=torch.int64)
+    call = {"ntt_fwd": lambda: ntt_cuda.ntt_fwd(x, tabs, 1),
+            "ntt_inv": lambda: ntt_cuda.ntt_inv(x, tabs, 1),
+            "ntt_fwd_tail": lambda: ntt_cuda.ntt_fwd_tail(x, x, x, tabs, 0, 1, 1, 1)}
+    with pytest.raises(ValueError, match=r"parts = 1 at n = 32768: a piece of "
+                                         r"32768 values takes 278520 bytes, more "
+                                         r"than one block's 232448 bytes"):
+        call[kernel]()

@@ -63,7 +63,28 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      shape from the card (`split`: parts, the MAC's cluster, registers,
      blocks per SM, waves) at every path shape: `ntt_inv` at (32, 16384),
      (64, 16384) (`rows_2B`) and `_INTT`'s (256, 16384), `ntt_fwd_mac` at 192
-     and 160 rows (`with_skipped_limb`).
+     and 160 rows (`with_skipped_limb`),
+  7. drives `wire_pack`: the main path's 64 ops through the API with
+     HEXL_TPU_WIRE_PACK=1 (52-bit words both ways), every op against the
+     golden model, its rate beside the unpacked run's, the bytes each way,
+  8. drives `ckks_path` at the SEAL bridge's configuration (n = 16384,
+     moduli of 52, 40 x 5, 52 bits, scale 2^40): encrypt three vectors, then
+     on the evaluator multiply_relin, rescale, rotate, add, conjugate,
+     add_plain, multiply_plain, each bit for bit against the host
+     CkksContext (through the API on the card); hoisted rotations,
+     rotate_many fused against unfused, the 16-diagonal BSGS matvec eager,
+     fused and replayed from one CUDA graph, bit for bit with each other,
+     and the replay again after more key sets than the key cache keeps
+     have passed through its level; every result decrypted to noise; the
+     kernels against their plain
+     versions at this path's shapes; times, launches per op, peak device
+     memory and the host's seconds,
+  9. drives `bgv_path` (n = 16384, t = 65537, the frozen vector's moduli):
+     multiply_relin, the GHS mod switch, rotate against the host BgvContext
+     bit for bit, and a hoisted rotation, each decrypted exactly mod t; the
+     kernels against their plain versions at this path's shapes,
+ 10. runs the frozen vector 16384_5_7_6_2_0 (an idle modulus: K > L + 1)
+     through the device context against its expected output.
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -71,8 +92,9 @@ line; the last line is {"ok": true, "device": {...}}.  Exit code 0 only if all
 of it passed.
 
 `main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
-a few ops at n = 32768) with the kernels' plain versions (no build, no kernel
-comparison, no timings): a check of the script, not of the card.
+a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 10) with the
+kernels' plain versions (no build, no kernel comparison, no timings): a check
+of the script, not of the card.  Each phase prints its seconds (`s`).
 """
 
 from __future__ import annotations
@@ -90,6 +112,10 @@ import torch
 
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
+from hexl_fpga_tpu_torch.integrations import bgv, ckks
+from hexl_fpga_tpu_torch.integrations.ckks import (
+    MATVEC_DIAGONALS, MATVEC_N1, SEAL_N, SEAL_SCALE, seal_moduli,
+)
 from hexl_fpga_tpu_torch.ops import (
     dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles,
     word64 as w,
@@ -674,10 +700,10 @@ def drive_api(vec, ops):
     return results, time.perf_counter() - t0
 
 
-def main_path(vec, device, rehearse):
+def golden_ops(vec):
+    """The main path's WORKSIZE operand pairs and their golden outputs (the
+    wire_pack phase drives the same ops); returns (ops, want, seconds)."""
     n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
-    start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
-
     ops = make_ops(vec, WORKSIZE, seed=7)
     t0 = time.perf_counter()
     want = [
@@ -689,6 +715,12 @@ def main_path(vec, device, rehearse):
     golden_s = time.perf_counter() - t0
     for i in range(N_VECTOR_OPS):
         np.testing.assert_array_equal(want[i], vec.expected_output)
+    return ops, want, golden_s
+
+
+def main_path(vec, device, rehearse, ops, want, golden_s):
+    n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
+    start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
 
     # a first pass stages keys and tables; the second is the counted one
     first, _ = drive_api(vec, ops)
@@ -1130,6 +1162,359 @@ def device_path(vec, device, rehearse):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the wire-packed KeySwitch transport (HEXL_TPU_WIRE_PACK=1)
+# ---------------------------------------------------------------------------
+
+
+def wire_pack_path(vec, device, rehearse, ops, want, unpacked_ops_per_s):
+    """The main path's WORKSIZE ops through the API with HEXL_TPU_WIRE_PACK=1
+    (52-bit words both ways over the copy stream, unpacked and packed on the
+    card): every op against the golden model, so against the unpacked
+    path's output too; the packed rate beside the unpacked one, and the
+    bytes each way per batch, packed and not."""
+    n, L = vec.coeff_count, vec.decomp_modulus_size
+    os.environ["HEXL_TPU_WIRE_PACK"] = "1"
+    try:
+        start_runtime(rehearse, BATCH_SIZE_KEYSWITCH=BATCH)
+        first, _ = drive_api(vec, ops)
+        ntt_cuda.reset_launch_counts()
+        results, wall_s = drive_api(vec, ops)
+        launches = {k: v for k, v in ntt_cuda.LAUNCHES.items() if v}
+        hexl.release_FPGA_resources()
+    finally:
+        del os.environ["HEXL_TPU_WIRE_PACK"]
+    for i, exp in enumerate(want):
+        np.testing.assert_array_equal(first[i], exp, err_msg=f"first pass, op {i}")
+        np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
+    batches = WORKSIZE // BATCH
+    expected = {} if rehearse else {"ntt_fwd": (L + 1) * batches,
+                                    "ntt_inv": (L + 1) * batches,
+                                    "ntt_fwd_tail": L * batches}
+    assert launches == expected, (launches, expected)
+    words = lambda rows: BATCH * rows * n * 13 // 8 * 4
+    out = {"config": vec.config_name, "ops": WORKSIZE, "batch": BATCH,
+           "ops_checked_vs_golden": len(want), "launches": launches,
+           "bytes_in_per_batch": words(3 * L),
+           "bytes_out_per_batch": words(2 * L),
+           "unpacked_bytes_in_per_batch": BATCH * 3 * L * n * 8,
+           "unpacked_bytes_out_per_batch": BATCH * 2 * L * n * 8}
+    if not rehearse:
+        out["api_ops_per_s"] = WORKSIZE / wall_s
+        out["unpacked_api_ops_per_s"] = unpacked_ops_per_s
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: CKKS at the SEAL bridge's configuration
+# ---------------------------------------------------------------------------
+
+# the SEAL bridge's CKKS deployment (SEAL_N, SEAL_SCALE, seal_moduli) and
+# bench.py's matvec shape (MATVEC_DIAGONALS, MATVEC_N1), from integrations/ckks
+CKKS_HOIST_STEPS = (1, 2, 3)
+CKKS_MANY_STEPS = [0, 1, 2, 3]
+NOISE = 1e-2  # decryptions, on values of order 1 (the reference's tests)
+
+
+def launches_now():
+    """Every kernel launch counter, nonzero ones only."""
+    counts = {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+def reset_all_counts():
+    ntt_cuda.reset_launch_counts()
+    dyadic_cuda.reset_launch_counts()
+
+
+def launches_of(fn):
+    """The launches of one call of fn, by kernel."""
+    reset_all_counts()
+    fn()
+    return launches_now()
+
+
+def check_scheme_shapes(moduli, n, device):
+    """The kernels of the scheme paths against their plain versions at the
+    shapes these paths give them (a batch of one ciphertext): ntt_inv and
+    ntt_fwd over (2, n) (rescale, the GHS mod switch) and (6, n) (INTT1's
+    stack), ntt_fwd_tail over (2, n) under each decomp modulus, dyadic_mul
+    at (1, 2, nl, n); returns the largest difference per kernel (0)."""
+    rng = np.random.default_rng(77)
+    L = len(moduli) - 1
+    err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "dyadic_mul": 0}
+    for j, q in enumerate(moduli):
+        tabs = ntt_cuda.modulus_tables(n, q, device=device)
+        for rows in (2, L):
+            x = rand_u64(rng, (rows, n), 64, device)
+            err["ntt_fwd"] = max(err["ntt_fwd"], assert_same(
+                "ntt_fwd", ntt_cuda.ntt_fwd(x, tabs), ntt_cuda.ntt_fwd_plain(x, tabs)))
+            err["ntt_inv"] = max(err["ntt_inv"], assert_same(
+                "ntt_inv", ntt_cuda.ntt_inv(x, tabs), ntt_cuda.ntt_inv_plain(x, tabs)))
+        msf = int(rng.integers(1, q))
+        tail = (rand_u64(rng, (2, n), 53, device), rand_u64(rng, (2, n), 58, device),
+                w.from_u64_np(rng.integers(0, q, size=(2, n), dtype=np.uint64), device),
+                tabs, q - 4321, msf, (msf << 64) // q)
+        err["ntt_fwd_tail"] = max(err["ntt_fwd_tail"], assert_same(
+            "ntt_fwd_tail", ntt_cuda.ntt_fwd_tail(*tail), ntt_cuda.ntt_fwd_tail_plain(*tail)))
+    for nl in (L, L - 1):
+        runner = dyadic_cuda.runner(moduli[:nl], device)
+        qcol = np.array(moduli[:nl], dtype=np.uint64).reshape(1, 1, nl, 1)
+        x, y = (w.from_u64_np(rng.integers(0, 1 << 63, size=(1, 2, nl, n),
+                                           dtype=np.uint64) % qcol, device)
+                for _ in range(2))
+        err["dyadic_mul"] = max(err["dyadic_mul"], assert_same(
+            "dyadic_mul", runner.run(x, y), dyadic_cuda.dyadic_multiply_plain(x, y, runner.meta)))
+    return err
+
+
+def same_ct(name, got, want):
+    """A device op's ciphertext against the host context's, bit for bit."""
+    np.testing.assert_array_equal(got.data, want.data, err_msg=name)
+    assert (got.level, got.scale) == (want.level, want.scale), name
+
+
+def ckks_path(device, rehearse):
+    """CKKS at the SEAL bridge's configuration: the host context's keys and
+    encryptions, then on the evaluator multiply_relin -> rescale -> rotate(1)
+    -> add -> conjugate -> add_plain -> multiply_plain (the counted pass),
+    each held bit for bit to the port's host CkksContext (which runs through
+    the public API on the card, a different composition of the same
+    kernels); hoist + rotate_hoisted, rotate_many fused against unfused, and
+    the BSGS matvec eager, fused and replayed from one CUDA graph, bit for
+    bit with each other; every result decrypted to noise.  Times by CUDA
+    events, launches per op, peak device memory, the host's seconds."""
+    n = 1024 if rehearse else SEAL_N
+    moduli = seal_moduli(n)
+    rng = np.random.default_rng(40)
+    slots = n // 2
+    zs = [rng.uniform(-1, 1, slots) + 1j * rng.uniform(-1, 1, slots) for _ in range(3)]
+    plain = rng.uniform(-1, 1, slots)
+    diags = {d: rng.uniform(-0.5, 0.5, slots) for d in range(MATVEC_DIAGONALS)}
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    host_s = {}
+    t0 = time.perf_counter()
+    ctx = ckks.CkksContext(n, moduli, SEAL_SCALE, seed=16)
+    host_s["context_and_relin_keys"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in sorted({1, *CKKS_HOIST_STEPS, *range(1, MATVEC_N1),
+                     *range(MATVEC_N1, MATVEC_DIAGONALS, MATVEC_N1)}):
+        ctx.galois_keys(r)
+    ctx._galois_keys_for(2 * n - 1)
+    host_s["rotation_keys"] = time.perf_counter() - t0
+    host_s["key_sets"] = 1 + len(ctx._rot_keys)
+    t0 = time.perf_counter()
+    cts = [ctx.encrypt(z) for z in zs]
+    host_s["encrypt_each"] = (time.perf_counter() - t0) / len(zs)
+    t0 = time.perf_counter()
+    ctx.encode(zs[0])
+    host_s["encode"] = time.perf_counter() - t0
+    ev = ckks.DeviceCkksEvaluator(ctx, device)
+    kernels = check_scheme_shapes(moduli, n, device) if not rehearse else None
+
+    # the counted pass: one evaluation on the card, a first pass stages keys
+    def chain():
+        h1, h2, h3 = (ev.stage(c) for c in cts)
+        steps = {"multiply_relin": ev.multiply_relin(h1, h2)}
+        steps["rescale"] = ev.rescale(steps["multiply_relin"])
+        steps["rotate"] = ev.rotate(steps["rescale"], 1)
+        steps["add"] = ev.add(steps["rescale"], steps["rotate"])
+        steps["conjugate"] = ev.conjugate(steps["add"])
+        steps["add_plain"] = ev.add_plain(steps["conjugate"], plain)
+        steps["multiply_plain"] = ev.multiply_plain(steps["add_plain"], plain)
+        return h3, steps
+
+    chain()
+    reset_all_counts()
+    h3, steps = chain()
+    launches = launches_now()
+    got = {k: ev.to_host(v) for k, v in steps.items()}
+
+    # the same evaluation by the host context, through the API
+    start_runtime(rehearse)
+    t0 = time.perf_counter()
+    want = {"multiply_relin": ctx.multiply_relin(cts[0], cts[1])}
+    want["rescale"] = ctx.rescale(want["multiply_relin"])
+    want["rotate"] = ctx.rotate(want["rescale"], 1)
+    want["add"] = ctx.add(want["rescale"], want["rotate"])
+    want["conjugate"] = ctx.conjugate(want["add"])
+    want["add_plain"] = ctx.add_plain(want["conjugate"], plain)
+    want["multiply_plain"] = ctx.multiply_plain(want["add_plain"], plain)
+    host_s["host_context_evaluation"] = time.perf_counter() - t0
+    hexl.release_FPGA_resources()
+    for k in want:
+        same_ct(k, got[k], want[k])
+    zz = zs[0] * zs[1]
+    z_add = zz + np.roll(zz, -1)
+    z_final = (np.conj(z_add) + plain) * plain
+    errors = {"evaluation": float(np.max(np.abs(ctx.decrypt(got["multiply_plain"]) - z_final)))}
+
+    # hoisting: one decomposition, several rotations (to noise)
+    hh = ev.hoist(h3)
+    for r in CKKS_HOIST_STEPS:
+        back = ctx.decrypt(ev.to_host(ev.rotate_hoisted(hh, r)))
+        errors[f"rotate_hoisted_{r}"] = float(np.max(np.abs(back - np.roll(zs[2], -r))))
+    fused = ev.rotate_many(h3, CKKS_MANY_STEPS)
+    unfused = ev.rotate_many(h3, CKKS_MANY_STEPS, fused=False)
+    for r, a, b in zip(CKKS_MANY_STEPS, fused, unfused):
+        assert torch.equal(a.data, b.data), f"rotate_many fused vs unfused, step {r}"
+        back = ctx.decrypt(ev.to_host(a))
+        errors[f"rotate_many_{r}"] = float(np.max(np.abs(back - np.roll(zs[2], -r))))
+
+    # the matvec: eager composition, fused, and one CUDA graph replayed
+    unfused_mv = ev.linear_transform(h3, diags, bsgs_n1=MATVEC_N1)
+    t0 = time.perf_counter()
+    fused_mv, program = ev.linear_transform_fused(h3, diags, bsgs_n1=MATVEC_N1,
+                                                  return_program=True)
+    host_s["matvec_staging_and_capture"] = time.perf_counter() - t0
+    assert torch.equal(fused_mv.data, unfused_mv.data), "matvec fused vs unfused"
+    assert torch.equal(program.eager(h3.data), fused_mv.data), "matvec eager"
+    assert torch.equal(program(h3.data), fused_mv.data), "matvec replay"
+    assert (program.graph is None) == rehearse
+    # the graph holds every key set it reads: more other key sets than the
+    # key cache keeps pass through h3's level, evicting the giant steps'
+    # (whose memory new keys then take), and the replay gives the same bits
+    ks = ev._ks_ctx(h3.level + 1)
+    giant = set(range(MATVEC_N1, MATVEC_DIAGONALS, MATVEC_N1))
+    others = [r for r in range(1, slots) if r not in giant][: ks.KEY_CACHE_SLOTS + 1]
+    t0 = time.perf_counter()
+    for r in others:
+        ev.rotate(h3, r)
+    host_s["eviction_check"] = time.perf_counter() - t0
+    cached = ks._key_cache._cache
+    for r in giant:
+        src = ctx.galois_keys(r)
+        assert tuple(id(a) for a in src) not in cached, f"giant step {r} still cached"
+    assert torch.equal(program(h3.data), fused_mv.data), "matvec replay after eviction"
+    want_mv = sum(diags[d] * np.roll(zs[2], -d) for d in diags)
+    errors["matvec"] = float(np.max(np.abs(ctx.decrypt(ev.to_host(fused_mv)) - want_mv)))
+    assert max(errors.values()) < NOISE, errors
+
+    per_op = {
+        "rotate": lambda: ev.rotate(h3, 1),
+        "multiply_relin": lambda: ev.multiply_relin(h3, h3),
+        "rescale": lambda: ev.rescale(steps["multiply_relin"]),
+        "rotate_hoisted": lambda: ev.rotate_hoisted(hh, 1),
+        "rotate_many": lambda: ev.rotate_many(h3, CKKS_MANY_STEPS),
+        "matvec_eager": lambda: program.eager(h3.data),
+    }
+    out = {
+        "n": n, "moduli_bits": [q.bit_length() for q in moduli], "scale_log2": 40,
+        "levels": {k: v.level for k, v in got.items()},
+        "ops_checked_vs_host_context": len(want),
+        "bit_equal": ["rotate_many fused vs unfused", "matvec fused vs unfused",
+                      "matvec eager vs graph replay",
+                      "matvec replay after its key sets left the cache"],
+        "key_sets_through_cache_after_capture": len(others),
+        "max_abs_err_decrypted": errors, "launches": launches,
+        "launches_per_op": {k: launches_of(f) for k, f in per_op.items()},
+        "host_s": host_s,
+        "host_bytes_embedding": ctx.E.nbytes,
+    }
+    if not rehearse:
+        out["kernels_vs_plain_max_abs_err"] = kernels
+        ms = {k: time_ms(f, 5) for k, f in per_op.items()}
+        ms["matvec_graph_replay"] = time_ms(lambda: program(h3.data), 5)
+        out["ms_per_op"] = ms
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["device_bytes_key_set"] = 2 * 8 * ctx.L * 2 * ctx.K * n
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: BGV at n = 16384 over the frozen vector's moduli
+# ---------------------------------------------------------------------------
+
+
+def bgv_path(vec, device, rehearse):
+    """BGV, t = PLAIN_MODULUS, over the frozen vector's seven moduli: on the
+    evaluator multiply_relin -> mod_switch_to_next -> rotate, and a hoisted
+    rotation (the counted pass); the non-hoisted ones equal the host
+    BgvContext bit for bit, and every one decrypts exactly mod t."""
+    n, t = vec.coeff_count, PLAIN_MODULUS
+    ctx = bgv.BgvContext(n, vec.moduli, t, seed=17)
+    rng = np.random.default_rng(18)
+    zs = [rng.integers(0, t, size=n, dtype=np.uint64) for _ in range(2)]
+    t0 = time.perf_counter()
+    ctx.galois_keys(1)
+    ctx.galois_keys(2)
+    cts = [ctx.encrypt(z) for z in zs]
+    host_s = {"keys_and_encrypt": time.perf_counter() - t0}
+    ev = bgv.DeviceBgvEvaluator(ctx, device)
+    kernels = check_scheme_shapes(vec.moduli, n, device) if not rehearse else None
+
+    def chain():
+        h1, h2 = (ev.stage(c) for c in cts)
+        s = {"multiply_relin": ev.multiply_relin(h1, h2)}
+        s["mod_switch_to_next"] = ev.mod_switch_to_next(s["multiply_relin"])
+        s["rotate"] = ev.rotate(s["mod_switch_to_next"], 1)
+        s["rotate_hoisted"] = ev.rotate_hoisted(ev.hoist(s["mod_switch_to_next"]), 2)
+        return s
+
+    chain()
+    reset_all_counts()
+    steps = chain()
+    launches = launches_now()
+    got = {k: ev.to_host(v) for k, v in steps.items()}
+
+    start_runtime(rehearse)
+    t0 = time.perf_counter()
+    want = {"multiply_relin": ctx.multiply_relin(*cts)}
+    want["mod_switch_to_next"] = ctx.mod_switch_to_next(want["multiply_relin"])
+    want["rotate"] = ctx.rotate(want["mod_switch_to_next"], 1)
+    host_s["host_context_evaluation"] = time.perf_counter() - t0
+    hexl.release_FPGA_resources()
+    for k in want:
+        same_ct(k, got[k], want[k])
+    prod = (zs[0].astype(object) * zs[1] % t).astype(np.uint64).reshape(2, -1)
+    expect = {"multiply_relin": prod, "mod_switch_to_next": prod,
+              "rotate": np.roll(prod, -1, axis=1),
+              "rotate_hoisted": np.roll(prod, -2, axis=1)}
+    for k, v in expect.items():
+        np.testing.assert_array_equal(ctx.decrypt(got[k]).reshape(2, -1), v, err_msg=k)
+    out = {"n": n, "plain_modulus": t, "moduli_of": vec.config_name,
+           "ops_checked_vs_host_context": len(want),
+           "ops_decrypted_exactly": len(expect), "launches": launches,
+           "noise_budget_bits": {"fresh": ctx.noise_budget(cts[0]),
+                                 "after_mod_switch": ctx.noise_budget(got["mod_switch_to_next"])},
+           "host_s": host_s}
+    if not rehearse:
+        out["kernels_vs_plain_max_abs_err"] = kernels
+        h1, h2 = (ev.stage(c) for c in cts)
+        ms_in = steps["multiply_relin"]
+        out["ms_per_op"] = {
+            "multiply_relin": time_ms(lambda: ev.multiply_relin(h1, h2), 5),
+            "mod_switch_to_next": time_ms(lambda: ev.mod_switch_to_next(ms_in), 5),
+        }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the frozen vector with an idle modulus (K > L + 1)
+# ---------------------------------------------------------------------------
+
+
+def idle_modulus_vector(device, rehearse):
+    """16384_5_7_6_2_0 (1024_5_7_6_2_0 in rehearsal): five decomp moduli under
+    seven key moduli, through the device context, against its
+    expected_output."""
+    name = "1024_5_7_6_2_0.json" if rehearse else "16384_5_7_6_2_0.json.gz"
+    v = vectors.load_json(os.path.join(HERE, "tests", "testdata", name))
+    ctx = keyswitch_cuda.get_context(
+        v.coeff_count, v.decomp_modulus_size, v.key_modulus_size,
+        v.rns_modulus_size, 2, v.moduli, v.twiddle_factors, device=device)
+    args = (v.input[None], v.t_target_iter_ptr[None], v.key_vectors,
+            v.modswitch_factors)
+    ctx.run_batch(*args)
+    reset_all_counts()
+    got = ctx.run_batch(*args)
+    launches = launches_now()
+    np.testing.assert_array_equal(got[0], v.expected_output)
+    return {"vector": name, "ops_checked_vs_expected_output": 1,
+            "launches": launches}
+
+
 def main(rehearse: bool = False) -> int:
     if rehearse:
         device = torch.device("cpu")
@@ -1162,13 +1547,24 @@ def main(rehearse: bool = False) -> int:
         kernels.append(check_dyadic_kernel(device))
         at_32768, at_path_shape = check_standalone_transforms(device)
         kernels += at_32768
-    paths = {
-        "main_path": main_path(vec, device, rehearse),
-        "copy_overlap": copy_overlap_path(vec, device, rehearse),
-        "dyadic_path": dyadic_path(device, rehearse),
-        "ntt_path": ntt_path(device, rehearse),
-        "device_path": device_path(vec, device, rehearse),
-    }
+    ops, want, golden_s = golden_ops(vec)
+    paths = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        paths[name] = fn(*args)
+        paths[name]["s"] = time.perf_counter() - t0
+
+    run("main_path", main_path, vec, device, rehearse, ops, want, golden_s)
+    run("copy_overlap", copy_overlap_path, vec, device, rehearse)
+    run("dyadic_path", dyadic_path, device, rehearse)
+    run("ntt_path", ntt_path, device, rehearse)
+    run("device_path", device_path, vec, device, rehearse)
+    run("wire_pack", wire_pack_path, vec, device, rehearse, ops, want,
+        paths["main_path"].get("api_ops_per_s"))
+    run("ckks_path", ckks_path, device, rehearse)
+    run("bgv_path", bgv_path, vec, device, rehearse)
+    run("16384_5_7_6_2_0", idle_modulus_vector, device, rehearse)
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
     profile_kernels()
@@ -1178,8 +1574,10 @@ def main(rehearse: bool = False) -> int:
             # B6 at n = 32768: the _NTT / _INTT cell's own counted pass
             k["launches"] = ntt_cells[k["shape"][1]].get(k["name"], 0)
         else:  # summed over the paths' counted passes
-            k["launches"] = sum(p["launches"].get(k["name"], 0)
-                                for p in paths.values())
+            k["launches_by_path"] = {
+                name: p["launches"][k["name"]] for name, p in paths.items()
+                if p["launches"].get(k["name"])}
+            k["launches"] = sum(k["launches_by_path"].values())
         assert k["launches"] > 0, k["name"]
     for name, path in paths.items():
         emit({name: path})

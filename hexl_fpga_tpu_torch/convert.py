@@ -10,6 +10,9 @@ bit pattern per value.  These converters let a test feed
 both packages the same staged operands and hold one's outputs against the
 other's.  Inputs are anything `np.asarray` accepts (numpy or
 device arrays of the other package); nothing of that package is imported.
+The scheme layer's state crosses the same way: a CKKS or BGV context from
+its parameters, secret and keys, and a CKKS ciphertext handle from the
+reference's interleaved `data32`.
 """
 
 from __future__ import annotations
@@ -78,3 +81,46 @@ def decomposition_from_pairs(dlo, dhi, ctx):
     from .ops import keyswitch_cuda as ks
 
     return ks.DeviceDecomposition(pair_to_i64(dlo, dhi, ctx.device), ctx)
+
+
+def scheme_context_from_state(n, moduli, s, relin_keys, rot_keys=None,
+                              scale=None, t=None, seed=0):
+    """A scheme context of this package from the reference's state, as plain
+    numpy arrays and lists: ring degree n, the moduli (special prime last),
+    the secret s (n small integers), the relinearization keys and the
+    rotation keys by Galois element ({g: key arrays}).  With t given it is a
+    BgvContext (plaintext modulus t), else a CkksContext of the given scale.
+    No key is drawn: both packages then compute on the same keys.  seed
+    starts the context's generator (later encryptions and keys)."""
+    from .integrations import bgv, ckks
+
+    if t is None:
+        ctx = ckks.CkksContext.__new__(ckks.CkksContext)
+        ctx._setup(n, moduli, scale, seed)
+    else:
+        ctx = bgv.BgvContext.__new__(bgv.BgvContext)
+        ctx.t = ctx._noise_scale = int(t)
+        ctx._setup(n, moduli, 1.0, seed)
+        ctx.encoder = bgv.BatchEncoder(n, ctx.t)
+    ctx.s = [int(v) for v in s]
+    ctx._embedding()
+    ctx.relin_keys = [np.array(k, dtype=np.uint64) for k in relin_keys]
+    ctx._rot_keys = {int(g): [np.array(k, dtype=np.uint64) for k in keys]
+                     for g, keys in dict(rot_keys or {}).items()}
+    return ctx
+
+
+def ckks_handle_from_data32(data32, level, scale, device="cpu"):
+    """A reference DeviceCkksCiphertext's interleaved u32 `data32`
+    ((2, level+1, 2n)) with its level and scale -> this package's
+    DeviceCkksCiphertext (one (2, level+1, n) int64 tensor on `device`)."""
+    from .integrations.ckks import DeviceCkksCiphertext
+
+    return DeviceCkksCiphertext(interleaved_to_i64(data32, device), int(level),
+                                float(scale))
+
+
+def ckks_handle_to_data32(h) -> np.ndarray:
+    """This package's DeviceCkksCiphertext -> the reference's interleaved u32
+    `data32` array (2, level+1, 2n)."""
+    return i64_to_interleaved(h.data)

@@ -49,9 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from . import galois_cuda, nt, ntt_cuda, twiddles, word64 as w
-
-_NOT_PORTED = "not ported yet"
+from . import galois_cuda, nt, ntt_cuda, twiddles, wirepack, word64 as w
 
 
 class KeySwitchContext:
@@ -200,12 +198,17 @@ class KeySwitchContext:
         """Lazy MAC sums (comp, B, n) under engine modulus j of the source
         limbs `rows`: val (len(rows), B, n) against key column j, by the
         context's MAC schedule."""
+        return self._mac_col(val, j, keys[rows, :, j, None, :],
+                             kp[rows, :, j, None, :])
+
+    def _mac_col(self, val, j, key, kp):
+        """_mac on a key column already taken: key, kp (L', comp, 1 or B, n),
+        one key row for every batch row or one for each."""
         q = self.moduli[j]
         val = val[:, None]  # (L', 1, B, n)
-        key = keys[rows, :, j, None, :]  # (L', comp, 1, n)
         if self.mac_impl == "exact128":
             return self._mac_close128(self._mac_sum128(val, key), q)
-        wx, Q = self._mac_term(val, key, kp[rows, :, j, None, :])
+        wx, Q = self._mac_term(val, key, kp)
         return self._mac_close(wx.sum(0), Q.sum(0), q)
 
     def _engine_acc(self, j, stack, t, keys, kp, skip_t_term):
@@ -314,10 +317,15 @@ class KeySwitchContext:
     # -- numpy wrappers ------------------------------------------------------
 
     def prepare_keys(self, k_switch_keys) -> np.ndarray:
-        """(L, comp, K, n) u64 from the API's list of flat key arrays."""
+        """(L, comp, K, n) u64 from the API's list of flat key arrays.  A
+        longer list (a scheme's keys for every decomp modulus, switched at a
+        lower level) contributes its first L, as in golden.keyswitch."""
+        if len(k_switch_keys) < self.L:
+            raise ValueError(
+                f"{len(k_switch_keys)} key arrays for {self.L} decomp moduli")
         return np.stack([
             np.asarray(kv, dtype=np.uint64).reshape(self.comp, self.K, self.n)
-            for kv in k_switch_keys
+            for kv in k_switch_keys[:self.L]
         ])
 
     def key_precons(self, keys: np.ndarray) -> np.ndarray:
@@ -399,18 +407,51 @@ class KeySwitchContext:
         (B, comp, L, n) int64 tensor on self.device.  results / t_targets
         are host arrays or handles already staged (the executor uploads on
         its copy stream).  The scheduler copies the PREVIOUS batch back to
-        the host while this one computes."""
+        the host while this one computes.
+
+        Under HEXL_TPU_WIRE_PACK=1 the operands must be host arrays: they
+        cross packed (pack_operands, dispatch_batch_packed) and the result
+        is the (B, comp, L, 13n/8) int32 tensor of packed words."""
         if self.wire_pack_enabled():
-            raise NotImplementedError(f"HEXL_TPU_WIRE_PACK: {_NOT_PORTED}")
+            if isinstance(results, _Handle) or isinstance(t_targets, _Handle):
+                raise TypeError("HEXL_TPU_WIRE_PACK=1 packs host operands; "
+                                "a device handle is already on the card")
+            rp, tp = self.pack_operands(results, t_targets)
+            return self.dispatch_batch_packed(
+                wirepack.to_device(rp, self.device),
+                wirepack.to_device(tp, self.device),
+                k_switch_keys, modswitch_factors)
         r, t = self._handles(results, t_targets)
         keys, kp = self.device_keys(k_switch_keys)
         return self._build(t.data, keys, kp, r.data,
                            self.prepare_msf4(modswitch_factors))
 
+    # -- 52-bit wire-packed transport (HEXL_TPU_WIRE_PACK=1) -----------------
+
+    def pack_operands(self, results, t_targets):
+        """Host side: (B, comp*L*n) results and (B, L*n) targets -> packed u32
+        words (B, comp, L, 13n/8) and (B, L, 13n/8) (ops/wirepack.py)."""
+        B = np.asarray(results).shape[0]
+        r = np.asarray(results, dtype=np.uint64).reshape(B, self.comp, self.L, self.n)
+        t = np.asarray(t_targets, dtype=np.uint64).reshape(B, self.L, self.n)
+        return wirepack.pack_u64_np(r), wirepack.pack_u64_np(t)
+
+    def dispatch_batch_packed(self, rp, tp, k_switch_keys, modswitch_factors):
+        """Device side of the packed route: the int32 packed operands (as
+        pack_operands lays them out, on self.device) are unpacked by torch
+        ops, the body runs, and the result is packed again for the copy back
+        (the reference's `_build32p`)."""
+        keys, kp = self.device_keys(k_switch_keys)
+        out = self._build(wirepack.unpack(tp), keys, kp, wirepack.unpack(rp),
+                          self.prepare_msf4(modswitch_factors))
+        return wirepack.pack(out)
+
     def run_batch(self, results, t_targets, k_switch_keys, modswitch_factors):
         B = results.shape[0]
         out = self.dispatch_batch(results, t_targets, k_switch_keys,
                                   modswitch_factors)
+        if out.dtype == torch.int32:  # packed words
+            return wirepack.unpack_u64_np(out.cpu().numpy().view(np.uint32)).reshape(B, -1)
         return w.to_u64_np(out).reshape(B, -1)
 
     def run(self, result, t_target, k_switch_keys, modswitch_factors):
@@ -540,6 +581,26 @@ class KeySwitchContext:
 
         out = self._finish(engine_acc, res, msf)
         return out if index is None else out.index_select(-1, index)
+
+    def _apply_hoisted_many(self, dec, res, keys, kp, msf, index):
+        """S hoisted applies of ONE decomposition (batch 1) as one batch of S:
+        step s takes its own keys keys[s], kp[s] (S, L, comp, K, n),
+        pre-permuted by sigma_s^{-1}, and its own output permutation index[s]
+        ((S, n) int64).  res (S, comp, L, n) is each step's unpermuted
+        accumulation base.  Every row is the row _apply_hoisted computes for
+        that step alone (the MAC is elementwise per row, the transforms and
+        tails per row), so the bits equal S separate calls."""
+        L, n = self.L, self.n
+        S = keys.shape[0]
+
+        def engine_acc(j, _skip):
+            plane = L if j == self.K - 1 else j
+            col = (keys[:, :, :, j, :].permute(1, 2, 0, 3),   # (L, comp, S, n)
+                   kp[:, :, :, j, :].permute(1, 2, 0, 3))
+            return self._mac_col(dec[plane].view(L, 1, n), j, *col)
+
+        out = self._finish(engine_acc, res, msf)        # (S, comp, L, n)
+        return out.gather(-1, index.view(S, 1, 1, n).expand_as(out))
 
     def hoisted_key_stack(self, k_switch_keys, perms):
         """Stacked sigma^{-1}-permuted (keys, precons) for a per-step hoisted

@@ -15,7 +15,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..ops import dyadic_cuda, golden, keyswitch_cuda, ntt_cuda, word64 as w
+from ..ops import dyadic_cuda, golden, keyswitch_cuda, ntt_cuda, wirepack, word64 as w
 from . import scheduler as sched
 
 
@@ -85,11 +85,13 @@ class GoldenExecutor(_Base):
             np.copyto(a["result"], out.reshape(a["result"].shape))
 
 
-def _scatter_to(batch, key: str):
-    """scatter(host): row b of a batch's u64 result into batch[b]'s caller
-    buffer args[key], in place."""
+def _scatter_to(batch, key: str, decode=None):
+    """scatter(host): row b of a batch's result into batch[b]'s caller
+    buffer args[key], in place.  host is the device result's numpy bytes:
+    u64 bit patterns, or whatever `decode` turns into u64 (packed words)."""
 
     def scatter(host):
+        host = host.view(np.uint64) if decode is None else decode(host)
         host = host.reshape(len(batch), -1)
         for b, item in enumerate(batch):
             np.copyto(item.args[key], host[b].reshape(item.args[key].shape))
@@ -138,7 +140,7 @@ class TorchExecutor(_Base):
         """One batch, split into submit and the returned finalize: stage()
         uploads the batch's host arrays and returns the device tensors,
         body(*tensors) computes the device result, scatter(host) writes the
-        u64 numpy result into the caller's buffers.
+        result's numpy bytes into the caller's buffers.
 
         The copy back is queued behind the next batch's upload and ahead of
         its body (or by finalize, whichever comes first): a body is a few
@@ -149,7 +151,7 @@ class TorchExecutor(_Base):
         copy = self.copy_stream
         if copy is None:
             out = body(*stage())
-            return lambda: scatter(w.to_u64_np(out))
+            return lambda: scatter(out.contiguous().numpy())
         compute = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(copy):
             staged = stage()
@@ -191,7 +193,7 @@ class TorchExecutor(_Base):
             done.synchronize()
             if self._queue_copy_back is queue_copy_back:
                 self._queue_copy_back = lambda: None
-            scatter(host.numpy().view(np.uint64))
+            scatter(host.numpy())
 
         return finalize
 
@@ -269,6 +271,24 @@ class TorchExecutor(_Base):
         rs = np.stack(
             [np.asarray(i.args["result"], dtype=np.uint64).ravel() for i in batch]
         )
+        if ctx.wire_pack_enabled():
+            # 52-bit words both ways (HEXL_TPU_WIRE_PACK=1): the host packs,
+            # the copy stream moves packed words, the card unpacks and packs
+            # (the reference's dispatch_batch32p route)
+            rp, tp = ctx.pack_operands(rs, ts)
+
+            def stage_packed():
+                return (wirepack.to_device(rp, self.device),
+                        wirepack.to_device(tp, self.device))
+
+            def body_packed(r, t):
+                return ctx.dispatch_batch_packed(
+                    r, t, a["k_switch_keys"], a["modswitch_factors"])
+
+            return self._submit(
+                stage_packed, body_packed,
+                _scatter_to(batch, "result",
+                            lambda h: wirepack.unpack_u64_np(h.view(np.uint32))))
 
         def stage():  # the handles' own uploads
             return ctx.stage_ciphertext(rs).data, ctx.stage_target(ts).data

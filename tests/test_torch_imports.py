@@ -26,6 +26,10 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.utils.sweep_row_split",
     "hexl_fpga_tpu_torch.utils.sass_count",
     "hexl_fpga_tpu_torch.utils.ablate_kernels",
+    "hexl_fpga_tpu_torch.ops.wirepack",
+    "hexl_fpga_tpu_torch.integrations.ckks",
+    "hexl_fpga_tpu_torch.integrations.bgv",
+    "hexl_fpga_tpu_torch.utils.profile_ckks",
 ]
 
 

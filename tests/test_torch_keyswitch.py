@@ -202,10 +202,16 @@ def test_unported_options_raise(vec, kwargs, match):
 
 
 def test_wire_pack_raises(vec, ctx, monkeypatch):
+    """HEXL_TPU_WIRE_PACK=1 packs host operands and gives the unpacked bits;
+    only a device handle, already on the card, raises."""
     monkeypatch.setenv("HEXL_TPU_WIRE_PACK", "1")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    np.testing.assert_array_equal(
         ctx.run(vec.input, vec.t_target_iter_ptr, vec.key_vectors,
-                vec.modswitch_factors)
+                vec.modswitch_factors), vec.expected_output)
+    with pytest.raises(TypeError, match="HEXL_TPU_WIRE_PACK"):
+        ctx.dispatch_batch(ctx.stage_ciphertext(vec.input[None]),
+                           vec.t_target_iter_ptr[None], vec.key_vectors,
+                           vec.modswitch_factors)
 
 
 def test_cuda_request_without_cuda_raises(vec):

@@ -83,7 +83,18 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      multiply_relin, the GHS mod switch, rotate against the host BgvContext
      bit for bit, and a hoisted rotation, each decrypted exactly mod t; the
      kernels against their plain versions at this path's shapes,
- 10. runs the frozen vector 16384_5_7_6_2_0 (an idle modulus: K > L + 1)
+ 10. drives `bfv_path`: BehzCuda, the BEHZ multiply, at the reference
+     benchmark's shape (n = 16384, six 51-bit primes, t = 65537, batch 8),
+     eager and replayed from its CUDA graph, bit for bit with each other and
+     with the host BehzTool on two batch rows; 3k + 1 ntt_inv, 2k + 1 ntt_fwd
+     and 1 dyadic_mul launches a multiply, none a replay; then a BfvContext
+     over the frozen vector's moduli (t = 65537): multiply_rns on the card
+     against the host tool, relinearize and mod_switch_to_next decrypted
+     exactly, a rotation on DeviceCkksEvaluator against the host context,
+     the noise budget; the kernels against their plain versions at the
+     multiply's shapes; ms a batch eager and replayed, the dependent-chain
+     rate, peak device memory, the host's seconds,
+ 11. runs the frozen vector 16384_5_7_6_2_0 (an idle modulus: K > L + 1)
      through the device context against its expected output.
 
 The launch counters are set to 0 just before each path's counted pass and read
@@ -92,7 +103,7 @@ line; the last line is {"ok": true, "device": {...}}.  Exit code 0 only if all
 of it passed.
 
 `main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
-a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 10) with the
+a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 11) with the
 kernels' plain versions (no build, no kernel comparison, no timings): a check
 of the script, not of the card.  Each phase prints its seconds (`s`).
 """
@@ -112,13 +123,13 @@ import torch
 
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
-from hexl_fpga_tpu_torch.integrations import bgv, ckks
+from hexl_fpga_tpu_torch.integrations import bfv, bgv, ckks
 from hexl_fpga_tpu_torch.integrations.ckks import (
     MATVEC_DIAGONALS, MATVEC_N1, SEAL_N, SEAL_SCALE, seal_moduli,
 )
 from hexl_fpga_tpu_torch.ops import (
-    dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, twiddles,
-    word64 as w,
+    dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, rns_behz,
+    rns_behz_cuda, twiddles, word64 as w,
 )
 from hexl_fpga_tpu_torch.runtime import scheduler
 from hexl_fpga_tpu_torch.utils import cuda_timing, vectors
@@ -1491,7 +1502,206 @@ def bgv_path(vec, device, rehearse):
 
 
 # ---------------------------------------------------------------------------
-# phase 10: the frozen vector with an idle modulus (K > L + 1)
+# phase 10: BFV at n = 16384, the BEHZ multiply as one CUDA graph
+# ---------------------------------------------------------------------------
+
+# the reference benchmark's BEHZ cell (`bench.py` bench_bfv_multiply): n =
+# 16384, six primes from generate_primes(6, 51, n), t = 65537, batch 8
+BEHZ_K, BEHZ_BITS, BEHZ_BATCH = 6, 51, 8
+BEHZ_ORACLE_ROWS = (0, BEHZ_BATCH - 1)  # batch rows held to the host BehzTool
+CHAIN_STEPS = 10
+
+
+def behz_launches(k):
+    """Kernel launches of one BEHZ multiply at k q moduli: ntt_inv over the
+    four inputs under q, the three outputs under q and under Bsk; ntt_fwd
+    over the extension under Bsk and the result under q; one tensor product
+    over q u Bsk."""
+    return {"ntt_inv": 3 * k + 1, "ntt_fwd": 2 * k + 1, "dyadic_mul": 1}
+
+
+def check_behz_shapes(behz, device):
+    """ntt_inv and ntt_fwd against their plain versions at the BEHZ
+    multiply's rows (4B and 3B) under the first q and the first Bsk prime,
+    dyadic_mul at (B, 2, 2k + 1, n) over q u Bsk; each timed beside its
+    bound (`device_ms` filled in after the paths)."""
+    rng = np.random.default_rng(79)
+    T = behz.tool
+    B, k, n = BEHZ_BATCH, T.k, T.n
+    entries = []
+    for tabs in (behz._q_tabs[0], behz._bsk_tabs[0]):
+        for rows in (4 * B, 3 * B):
+            x = w.from_u64_np(rng.integers(0, tabs.q, size=(rows, n), dtype=np.uint64),
+                              device)
+            for name, fn, plain, extra in (
+                ("ntt_inv", ntt_cuda.ntt_inv, ntt_cuda.ntt_inv_plain,
+                 IMAD_BARRETT + IMAD_LAZY_MUL // 2),
+                ("ntt_fwd", ntt_cuda.ntt_fwd, ntt_cuda.ntt_fwd_plain, IMAD_BARRETT),
+            ):
+                kern = lambda fn=fn, x=x, tabs=tabs: fn(x, tabs)
+                b_ms, b_by = bound(rows, n, 2, extra)
+                entry = {"name": name, "shape": [rows, n], "modulus_bits": tabs.q.bit_length(),
+                         "max_abs_err": assert_same(name, kern(), plain(x, tabs)),
+                         "ms": time_ms(kern, 20), "plain_ms": time_ms(lambda: plain(x, tabs), 2),
+                         "bound_ms": b_ms, "bound_by": b_by}
+                profile_later(entry, name, kern)
+                entries.append(entry)
+    moduli = T.q + T.Bsk
+    qcol = np.array(moduli, dtype=np.uint64).reshape(1, 1, -1, 1)
+    x, y = (w.from_u64_np(rng.integers(0, 1 << 63, size=(B, 2, len(moduli), n),
+                                       dtype=np.uint64) % qcol, device) for _ in range(2))
+    runner = behz._runner
+    kern = lambda: runner.run(x, y)
+    b_ms, b_by = dyadic_bound(B, len(moduli), n)
+    entry = {"name": "dyadic_mul", "shape": [B, 2, len(moduli), n],
+             "max_abs_err": assert_same("dyadic_mul", kern(),
+                                        dyadic_cuda.dyadic_multiply_plain(x, y, runner.meta)),
+             "ms": time_ms(kern, 20),
+             "plain_ms": time_ms(lambda: dyadic_cuda.dyadic_multiply_plain(x, y, runner.meta), 2),
+             "bound_ms": b_ms, "bound_by": b_by}
+    profile_later(entry, "dyadic_mul", kern)
+    return entries + [entry]
+
+
+def bfv_path(vec, device, rehearse):
+    """BFV on the card.  First the reference benchmark's BEHZ shape: BehzCuda
+    at batch 8 eager and replayed from its CUDA graph, bit for bit with each
+    other and, on two batch rows, with the host BehzTool; launches per
+    multiply (none for a replay).  Then a BfvContext over the frozen vector's
+    seven moduli, t = PLAIN_MODULUS: two encryptions, multiply_rns on the
+    card bit for bit against the host tool, relinearize and
+    mod_switch_to_next each decrypting exactly to z1 * z2 mod t, a rotation
+    on DeviceCkksEvaluator bit for bit against the host context and
+    decrypted exactly, the noise budget along the way.  Times by CUDA
+    events, the dependent-chain rate of `bench.py` (two of the three outputs
+    feed the next multiply), peak device memory, the host's seconds."""
+    n, t = vec.coeff_count, PLAIN_MODULUS
+    if rehearse:  # multiply_rns(device=None) under RUN_CHOICE=1: the plain versions
+        os.environ["RUN_CHOICE"] = "1"
+        config_mod.reset_config()
+    on_card = None if rehearse else True
+    if not rehearse:
+        torch.cuda.reset_peak_memory_stats()
+    host_s = {}
+    rng = np.random.default_rng(19)
+    t0 = time.perf_counter()
+    q = [int(p) for p in nt.generate_primes(BEHZ_K, BEHZ_BITS, n)]
+    tool = rns_behz.BehzTool(n, q, t)
+    tabs = [twiddles.ntt_tables(n, qi) for qi in q]
+    behz = rns_behz_cuda.BehzCuda(tool, tabs, device)
+    host_s["behz_tool_and_staging"] = time.perf_counter() - t0
+    qcol = np.array(q, dtype=np.uint64).reshape(1, 1, BEHZ_K, 1)
+    c1, c2 = (rng.integers(0, 1 << 62, size=(BEHZ_BATCH, 2, BEHZ_K, n), dtype=np.uint64)
+              % qcol for _ in range(2))
+    x1, x2 = w.from_u64_np(c1, device), w.from_u64_np(c2, device)
+    t0 = time.perf_counter()
+    program = behz.program(BEHZ_BATCH)
+    host_s["behz_capture"] = time.perf_counter() - t0
+    assert (program.graph is None) == rehearse
+    eager = behz.multiply_tensors(x1, x2)
+    replay = program(x1, x2)
+    assert torch.equal(eager, replay), "BEHZ multiply: eager vs graph replay"
+    got = w.to_u64_np(replay)
+    t0 = time.perf_counter()
+    for b in BEHZ_ORACLE_ROWS:
+        np.testing.assert_array_equal(got[b], tool.multiply(c1[b], c2[b], tabs),
+                                      err_msg=f"BEHZ batch row {b} vs BehzTool")
+    host_s["behz_oracle_each"] = (time.perf_counter() - t0) / len(BEHZ_ORACLE_ROWS)
+    per_multiply = {"eager": launches_of(lambda: behz.multiply_tensors(x1, x2)),
+                    "graph_replay": launches_of(lambda: program(x1, x2))}
+    assert per_multiply == ({"eager": {}, "graph_replay": {}} if rehearse else
+                            {"eager": behz_launches(BEHZ_K), "graph_replay": {}}), per_multiply
+
+    t0 = time.perf_counter()
+    ctx = bfv.BfvContext(n, vec.moduli, t, seed=21)
+    host_s["context_and_relin_keys"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ctx.galois_keys(1)
+    host_s["rotation_keys"] = time.perf_counter() - t0
+    zs = [rng.integers(0, t, size=n, dtype=np.uint64) for _ in range(2)]
+    t0 = time.perf_counter()
+    cts = [ctx.encrypt(z) for z in zs]
+    host_s["encrypt_each"] = (time.perf_counter() - t0) / len(zs)
+    ev = ckks.DeviceCkksEvaluator(ctx, device)
+
+    # the counted pass: an eager BEHZ multiply at the benchmark shape, its
+    # replay, multiply_rns on the context's level (its graph captured by the
+    # first pass) and a rotation on the evaluator
+    def chain():
+        s = {"behz_eager": behz.multiply_tensors(x1, x2), "behz_replay": program(x1, x2)}
+        s["multiply_rns"], _ = ctx.multiply_rns(cts[0], cts[1], device=on_card)
+        s["rotate"] = ev.to_host(ev.rotate(ev.stage(cts[0]), 1))
+        return s
+
+    chain()
+    reset_all_counts()
+    steps = chain()
+    launches = launches_now()
+    rotate_launches = launches_of(lambda: ev.rotate(ev.stage(cts[0]), 1))
+    if not rehearse:
+        want = dict(behz_launches(BEHZ_K))
+        for k, v in rotate_launches.items():
+            want[k] = want.get(k, 0) + v
+        assert launches == want, (launches, want)
+    assert torch.equal(steps["behz_eager"], eager) and torch.equal(steps["behz_replay"], eager)
+
+    nl = cts[0].level + 1
+    t0 = time.perf_counter()
+    d_host, _ = ctx.multiply_rns(cts[0], cts[1], device=False)
+    host_s["multiply_rns_host_tool"] = time.perf_counter() - t0
+    np.testing.assert_array_equal(steps["multiply_rns"], d_host,
+                                  err_msg="multiply_rns on the card vs the host BehzTool")
+    t0 = time.perf_counter()
+    relin = ctx.relinearize(steps["multiply_rns"], 1.0, level=nl - 1)
+    switched = ctx.mod_switch_to_next(relin)
+    want_rot = ctx.rotate(cts[0], 1)
+    host_s["relinearize_mod_switch_rotate"] = time.perf_counter() - t0
+    same_ct("rotate", steps["rotate"], want_rot)
+    prod = (zs[0].astype(object) * zs[1] % t).astype(np.uint64)
+    for name, ct, z in (("relinearize", relin, prod), ("mod_switch_to_next", switched, prod),
+                        ("rotate", steps["rotate"],
+                         np.roll(zs[0].reshape(2, -1), -1, axis=1).ravel())):
+        np.testing.assert_array_equal(ctx.decrypt(ct), z, err_msg=name)
+    budget = {"fresh": ctx.noise_budget(cts[0]), "after_multiply": ctx.noise_budget(relin),
+              "after_mod_switch": ctx.noise_budget(switched)}
+    assert 0 < budget["after_multiply"] < budget["fresh"], budget
+    out = {
+        "n": n, "plain_modulus": t,
+        "behz": {"q_bits": [m.bit_length() for m in q],
+                 "bsk_bits": [m.bit_length() for m in tool.Bsk], "batch": BEHZ_BATCH,
+                 "rows_vs_host_tool": len(BEHZ_ORACLE_ROWS),
+                 "launches_per_multiply": per_multiply},
+        "moduli_of": vec.config_name, "level_moduli": nl,
+        "bsk_bits_of_level": [m.bit_length() for m in ctx._behz(nl).Bsk],
+        "bit_equal": ["BEHZ eager vs graph replay", "BEHZ vs host BehzTool",
+                      "multiply_rns card vs host tool", "rotate evaluator vs host context"],
+        "ops_decrypted_exactly": 3, "noise_budget_bits": budget,
+        "launches": launches, "launches_rotate": rotate_launches, "host_s": host_s,
+    }
+    if not rehearse:
+        out["kernels_at_path_shapes"] = check_behz_shapes(behz, device)
+        ms = {"behz_eager_batch": time_ms(lambda: behz.multiply_tensors(x1, x2), 5),
+              "behz_graph_replay_batch": time_ms(lambda: program(x1, x2), 10)}
+        h1 = ev.stage(cts[0])
+        ms["rotate"] = time_ms(lambda: ev.rotate(h1, 1), 5)
+        out["ms"] = ms
+        # bench.py's dependent chain: two of the three outputs feed the next
+        state = {"a": x1, "b": x2}
+
+        def step():
+            o = program(state["a"], state["b"])
+            state["a"], state["b"] = o[:, 0:2], o[:, 1:3]
+
+        chain_ms = time_ms(step, CHAIN_STEPS)
+        out["chain_multiplies_per_s"] = BEHZ_BATCH / chain_ms * 1e3
+        out["chain_ms_per_batch"] = chain_ms
+        out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        out["device_bytes_behz_operands"] = 2 * x1.numel() * 8
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the frozen vector with an idle modulus (K > L + 1)
 # ---------------------------------------------------------------------------
 
 
@@ -1564,6 +1774,7 @@ def main(rehearse: bool = False) -> int:
         paths["main_path"].get("api_ops_per_s"))
     run("ckks_path", ckks_path, device, rehearse)
     run("bgv_path", bgv_path, vec, device, rehearse)
+    run("bfv_path", bfv_path, vec, device, rehearse)
     run("16384_5_7_6_2_0", idle_modulus_vector, device, rehearse)
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape

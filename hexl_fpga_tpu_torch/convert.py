@@ -10,8 +10,8 @@ bit pattern per value.  These converters let a test feed
 both packages the same staged operands and hold one's outputs against the
 other's.  Inputs are anything `np.asarray` accepts (numpy or
 device arrays of the other package); nothing of that package is imported.
-The scheme layer's state crosses the same way: a CKKS or BGV context from
-its parameters, secret and keys, and a CKKS ciphertext handle from the
+The scheme layer's state crosses the same way: a CKKS, BGV or BFV context
+from its parameters, secret and keys, and a CKKS ciphertext handle from the
 reference's interleaved `data32`.
 """
 
@@ -84,22 +84,31 @@ def decomposition_from_pairs(dlo, dhi, ctx):
 
 
 def scheme_context_from_state(n, moduli, s, relin_keys, rot_keys=None,
-                              scale=None, t=None, seed=0):
+                              scale=None, t=None, seed=0, scheme=None):
     """A scheme context of this package from the reference's state, as plain
     numpy arrays and lists: ring degree n, the moduli (special prime last),
     the secret s (n small integers), the relinearization keys and the
-    rotation keys by Galois element ({g: key arrays}).  With t given it is a
-    BgvContext (plaintext modulus t), else a CkksContext of the given scale.
-    No key is drawn: both packages then compute on the same keys.  seed
-    starts the context's generator (later encryptions and keys)."""
-    from .integrations import bgv, ckks
+    rotation keys by Galois element ({g: key arrays}).  `scheme` names the
+    context: "ckks" (of the given scale), "bgv" or "bfv" (plaintext modulus
+    t); left None it is "bgv" with t given, else "ckks".  No key is drawn:
+    both packages then compute on the same keys.  seed starts the context's
+    generator (later encryptions and keys)."""
+    from .integrations import bfv, bgv, ckks
 
-    if t is None:
+    if scheme is None:
+        scheme = "ckks" if t is None else "bgv"
+    if scheme not in ("ckks", "bgv", "bfv") or (scheme == "ckks") != (t is None):
+        raise ValueError(f"scheme {scheme!r} with t = {t}: CKKS takes no t, "
+                         "BGV and BFV take one")
+    if scheme == "ckks":
         ctx = ckks.CkksContext.__new__(ckks.CkksContext)
         ctx._setup(n, moduli, scale, seed)
     else:
-        ctx = bgv.BgvContext.__new__(bgv.BgvContext)
-        ctx.t = ctx._noise_scale = int(t)
+        cls = bgv.BgvContext if scheme == "bgv" else bfv.BfvContext
+        ctx = cls.__new__(cls)
+        ctx.t = int(t)
+        if scheme == "bgv":
+            ctx._noise_scale = ctx.t
         ctx._setup(n, moduli, 1.0, seed)
         ctx.encoder = bgv.BatchEncoder(n, ctx.t)
     ctx.s = [int(v) for v in s]

@@ -47,6 +47,7 @@ import torch
 from .. import api
 from ..ops import dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda
 from ..ops import twiddles, word64 as w
+from ..utils.graph import GraphProgram
 
 # the SEAL bridge's CKKS deployment
 # (experimental/bridge-seal/tests/keyswitch-example.cpp:30-33): n = 16384,
@@ -771,7 +772,7 @@ class DeviceCkksEvaluator:
         final sum.  The same operations in the same order as
         linear_transform, so the same bits.
 
-        return_program=True also returns a LinearTransformProgram: a callable
+        return_program=True also returns a GraphProgram: a callable
         of the (2, nl, n) tensor that, on CUDA, replays one captured
         torch.cuda.CUDAGraph of the whole product (the counterpart of the
         reference's one jitted program); `.eager` runs the composition
@@ -816,43 +817,5 @@ class DeviceCkksEvaluator:
 
         out = DeviceCkksCiphertext(run(h.data), h.level, h.scale * self.ctx.scale)
         if return_program:
-            return out, LinearTransformProgram(run, h.data)
+            return out, GraphProgram(run, h.data)
         return out
-
-
-class LinearTransformProgram:
-    """One encrypted matrix-vector product as a callable of the (2, nl, n)
-    ciphertext tensor.
-
-    On CUDA the constructor runs the product once on a side stream (filling
-    the launch-shape caches) and captures it into one torch.cuda.CUDAGraph.
-    The graph reads only tensors that outlive it: the keys, Galois indices,
-    diagonals and constants that linear_transform_fused staged, held by
-    `eager`'s closure, and the tables of the evaluator's contexts.  A call
-    copies its input into the graph's static input, replays the graph and
-    returns a copy of its static output.  A failed capture raises: the card
-    never falls back to the eager composition.  On the CPU a call is the
-    eager composition.  The kernels' launch counters see the warm-up and the
-    capture, never a replay."""
-
-    def __init__(self, run, example: torch.Tensor):
-        self.eager = run
-        self.graph = None
-        if example.device.type != "cuda":
-            return
-        self._x = example.clone()
-        side = torch.cuda.Stream(example.device)
-        side.wait_stream(torch.cuda.current_stream(example.device))
-        with torch.cuda.stream(side):
-            run(self._x)
-        torch.cuda.current_stream(example.device).wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self._out = run(self._x)
-
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        if self.graph is None:
-            return self.eager(x)
-        self._x.copy_(x)
-        self.graph.replay()
-        return self._out.clone()

@@ -86,9 +86,9 @@ def _runner(moduli: tuple, device: str) -> DyadicRunner:
     return DyadicRunner(moduli, w.from_u64_np(meta, device))
 
 
-def runner(moduli, device="cpu") -> DyadicRunner:
-    """The cached runner for a moduli vector on `device` (any n); its
-    constants are uploaded once."""
+def runner(moduli, device="cuda") -> DyadicRunner:
+    """The cached runner for a moduli vector on `device` (the card unless the
+    caller asks for the CPU; any n); its constants are uploaded once."""
     return _runner(tuple(int(q) for q in moduli), str(torch.device(device)))
 
 

@@ -56,8 +56,9 @@ def _galois_index(n: int, g: int, device: str) -> torch.Tensor:
     return torch.from_numpy(ntt_galois_sigma(n, g)).to(device)
 
 
-def galois_index(n: int, g: int, device="cpu") -> torch.Tensor:
-    """sigma_g as an int64 index tensor on `device`, cached per (n, g, device)."""
+def galois_index(n: int, g: int, device="cuda") -> torch.Tensor:
+    """sigma_g as an int64 index tensor on `device` (the card unless the caller
+    asks for the CPU), cached per (n, g, device)."""
     return _galois_index(int(n), int(g) % (2 * int(n)), str(torch.device(device)))
 
 

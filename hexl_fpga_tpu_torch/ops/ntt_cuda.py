@@ -134,9 +134,10 @@ def _modulus_tables(n: int, q: int, psi, device: str) -> ModulusTables:
 
 
 def modulus_tables(n: int, q: int, psi: int | None = None,
-                   device="cpu") -> ModulusTables:
-    """Tables for (n, q) on `device`; psi (a primitive 2n-th root, e.g. from a
-    caller's twiddle table) defaults to the minimal one."""
+                   device="cuda") -> ModulusTables:
+    """Tables for (n, q) on `device` (the card unless the caller asks for the
+    CPU); psi (a primitive 2n-th root, e.g. from a caller's twiddle table)
+    defaults to the minimal one."""
     return _modulus_tables(int(n), int(q), None if psi is None else int(psi),
                            str(torch.device(device)))
 

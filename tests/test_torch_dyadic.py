@@ -15,7 +15,7 @@ N, M, B = 256, 3, 2
 
 def port(op1, op2, moduli):
     """(B, 2, M, n) u64 operands through the port's wrapper on the CPU."""
-    r = dyadic_cuda.runner(moduli)
+    r = dyadic_cuda.runner(moduli, device="cpu")
     return w.to_u64_np(r.run(w.from_u64_np(op1), w.from_u64_np(op2)))
 
 
@@ -147,8 +147,8 @@ def test_interleaved_converter_reads_the_reference_layout():
 
 def test_runner_is_cached_and_wrapper_checks_arguments():
     moduli = [17, 19]
-    r = dyadic_cuda.runner(moduli)
-    assert dyadic_cuda.runner(np.array(moduli, dtype=np.uint64)) is r
+    r = dyadic_cuda.runner(moduli, device="cpu")
+    assert dyadic_cuda.runner(np.array(moduli, dtype=np.uint64), device="cpu") is r
     assert r.meta.shape == (3, 2) and r.meta.dtype == torch.int64
     x = torch.zeros(1, 2, 2, 8, dtype=torch.int64)
     with pytest.raises(TypeError):
@@ -162,11 +162,11 @@ def test_runner_is_cached_and_wrapper_checks_arguments():
     with pytest.raises(ValueError):
         dyadic_cuda.dyadic_multiply(x, x, r.meta[:, :1].contiguous())
     with pytest.raises(ValueError, match=">= 2"):
-        dyadic_cuda.runner([17, 1])
+        dyadic_cuda.runner([17, 1], device="cpu")
 
 
 def test_cpu_tensors_launch_nothing():
     dyadic_cuda.reset_launch_counts()
     x = torch.zeros(1, 2, 1, 8, dtype=torch.int64)
-    dyadic_cuda.runner([17]).run(x, x)
+    dyadic_cuda.runner([17], device="cpu").run(x, x)
     assert dyadic_cuda.LAUNCHES == {"dyadic_mul": 0}

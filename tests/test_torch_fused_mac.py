@@ -49,7 +49,7 @@ def golden_sum(data, keys, j, q, skip_i, L=L, B=B):
 
 
 def run_plain(data, keys, kp, j, q, skip_i):
-    tabs = ntt_cuda.modulus_tables(data.shape[1], q)
+    tabs = ntt_cuda.modulus_tables(data.shape[1], q, device="cpu")
     out = ntt_cuda.ntt_fwd_mac(w.from_u64_np(data), w.from_u64_np(keys),
                                w.from_u64_np(kp), j, tabs, skip_i)
     return w.to_u64_np(out)
@@ -94,7 +94,7 @@ def test_three_limbs_middle_skip_is_the_sum_without_that_limb():
     q = moduli[1]
     full = run_plain(data, keys, kp, 1, q, None)
     part = run_plain(data, keys, kp, 1, q, 1)
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     mid = ntt_cuda.ntt_fwd_mac_plain(
         w.from_u64_np(data[1:2]), w.from_u64_np(keys[1:2]),
         w.from_u64_np(kp[1:2]), 1, tabs)
@@ -106,7 +106,7 @@ def test_three_limbs_middle_skip_is_the_sum_without_that_limb():
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     moduli, data, keys, kp = make_case(3, seed=41)
-    tabs = ntt_cuda.modulus_tables(N, moduli[0])
+    tabs = ntt_cuda.modulus_tables(N, moduli[0], device="cpu")
     d, k, p = w.from_u64_np(data), w.from_u64_np(keys), w.from_u64_np(kp)
     with pytest.raises(ValueError, match="skip_i needs L >= 2"):
         ntt_cuda.ntt_fwd_mac(d[:B], k[:1].contiguous(), p[:1].contiguous(), 0, tabs, 0)
@@ -157,7 +157,7 @@ def test_split_plain_matches_pallas_kernel_and_golden(skip_i, parts):
     moduli, data, keys, kp = split_case()
     j = 2 if skip_i is None else skip_i
     q = moduli[j]
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     got = w.to_u64_np(ntt_cuda.ntt_fwd_mac_plain(
         w.from_u64_np(data), w.from_u64_np(keys), w.from_u64_np(kp), j, tabs,
         skip_i, parts))
@@ -183,7 +183,7 @@ def test_mac_launch_shape_at_the_fused_body():
     assert ntt_cuda.mac_chunk(16384, 2, 2) == 2
     moduli, data, keys, kp = make_case(3, seed=51)
     d, k, p = w.from_u64_np(data), w.from_u64_np(keys), w.from_u64_np(kp)
-    tabs = ntt_cuda.modulus_tables(N, moduli[0])
+    tabs = ntt_cuda.modulus_tables(N, moduli[0], device="cpu")
     with pytest.raises(ValueError, match="cluster"):
         ntt_cuda.ntt_fwd_mac(d, k, p, 0, tabs, 0, cluster=2)  # one limb left
     with pytest.raises(ValueError, match="parts"):

@@ -30,6 +30,10 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.integrations.ckks",
     "hexl_fpga_tpu_torch.integrations.bgv",
     "hexl_fpga_tpu_torch.utils.profile_ckks",
+    "hexl_fpga_tpu_torch.utils.graph",
+    "hexl_fpga_tpu_torch.ops.rns_behz",
+    "hexl_fpga_tpu_torch.ops.rns_behz_cuda",
+    "hexl_fpga_tpu_torch.integrations.bfv",
 ]
 
 
@@ -103,7 +107,7 @@ def test_cuda_launch_path_raises_without_cuda():
         "              [1073750017, 1073872897]))\n"
         "assert raises(lambda: ntt_cuda.modulus_tables(32768, 1152921504606584833,\n"
         "              device='cuda'))\n"
-        "t = ntt_cuda.modulus_tables(1024, 1073750017)\n"
+        "t = ntt_cuda.modulus_tables(1024, 1073750017, device='cpu')\n"
         "assert raises(lambda: ntt_cuda.caller_fwd_tables(1024, t.q, t.tab[0].numpy(),\n"
         "              t.tab[1].numpy(), device='cuda'))\n"
         "assert raises(lambda: dyadic_cuda.runner([17], device='cuda'))\n"
@@ -118,3 +122,30 @@ def test_cuda_launch_path_raises_without_cuda():
     res = run_py(code)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "raised"
+
+
+def test_op_constructors_default_to_the_card():
+    """The op-level constructors build for the card unless asked for the
+    CPU, as the reference's build for the default device: without a CUDA
+    device the default raises."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    code = (
+        "from hexl_fpga_tpu_torch.ops import dyadic_cuda, galois_cuda, ntt_cuda\n"
+        "def raises(fn):\n"
+        "    try: fn()\n"
+        "    except (RuntimeError, AssertionError) as e: return True\n"
+        "    return False\n"
+        "assert raises(lambda: ntt_cuda.modulus_tables(1024, 1073750017))\n"
+        "assert raises(lambda: dyadic_cuda.runner([17]))\n"
+        "assert raises(lambda: galois_cuda.galois_index(1024, 5))\n"
+        "assert ntt_cuda.modulus_tables(1024, 1073750017, device='cpu').tab.is_cpu\n"
+        "assert dyadic_cuda.runner([17], device='cpu').meta.is_cpu\n"
+        "assert galois_cuda.galois_index(1024, 5, device='cpu').is_cpu\n"
+        "print('card')\n"
+    )
+    res = run_py(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "card"

@@ -39,7 +39,7 @@ def test_fwd_matches_pallas_and_golden(q):
     a = rng.integers(0, q, size=(4, N), dtype=np.uint64)
     a[0] = 0
     a[1] = q - 1
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     got = run_port(ntt_cuda.ntt_fwd, a, tabs)
     np.testing.assert_array_equal(got, golden.fwd_ntt(a, q))
     ref = run_pallas(ntt_mxu_pallas.raw_fwd_call(N, q, TILE_P, interpret=True), a)
@@ -51,7 +51,7 @@ def test_fwd_unreduced_53bit_input_lazy_reference_mod_q(q):
     """The keyswitch engines' contract: unreduced input < 2^53, lazy output."""
     rng = np.random.default_rng(7)
     raw = rng.integers(0, 1 << 53, size=(2, N), dtype=np.uint64)
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     got = run_port(ntt_cuda.ntt_fwd, raw, tabs)
     np.testing.assert_array_equal(got, golden.fwd_ntt(raw % np.uint64(q), q))
     call = ntt_mxu_pallas.raw_fwd_call(N, q, TILE_P, interpret=True,
@@ -64,7 +64,7 @@ def test_fwd_takes_any_u64(q):
     rng = np.random.default_rng(8)
     raw = rng.integers(0, 1 << 64, size=(2, N), dtype=np.uint64)
     raw[0, :4] = [0, (1 << 64) - 1, 1 << 63, q]
-    got = run_port(ntt_cuda.ntt_fwd, raw, ntt_cuda.modulus_tables(N, q))
+    got = run_port(ntt_cuda.ntt_fwd, raw, ntt_cuda.modulus_tables(N, q, device="cpu"))
     np.testing.assert_array_equal(got, golden.fwd_ntt(raw % np.uint64(q), q))
 
 
@@ -72,7 +72,7 @@ def test_inv_matches_pallas_and_golden(q):
     rng = np.random.default_rng(2)
     a = rng.integers(0, q, size=(4, N), dtype=np.uint64)
     a[0] = q - 1
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     got = run_port(ntt_cuda.ntt_inv, a, tabs)
     np.testing.assert_array_equal(got, golden.inv_ntt(a, q))
     ref = run_pallas(ntt_mxu_pallas.raw_inv_call(N, q, TILE_P, interpret=True), a)
@@ -90,7 +90,7 @@ def test_psi_override_matches_pallas(q):
     assert psi != psi0 and nt.is_primitive_root(psi, 2 * N, q)
     rng = np.random.default_rng(3)
     a = rng.integers(0, q, size=(2, N), dtype=np.uint64)
-    tabs = ntt_cuda.modulus_tables(N, q, psi)
+    tabs = ntt_cuda.modulus_tables(N, q, psi, device="cpu")
     gtabs = twiddles.ntt_tables(N, q, psi)
     f = run_port(ntt_cuda.ntt_fwd, a, tabs)
     np.testing.assert_array_equal(f, golden.fwd_ntt(a, q, gtabs))
@@ -124,7 +124,7 @@ def test_fwd_tail_matches_pallas_and_definition(q):
     acc = rng.integers(0, 1 << 58, size=(R, N), dtype=np.uint64)  # lazy sums
     res = rng.integers(0, q, size=(R, N), dtype=np.uint64)
     res[0, :2] = [q - 1, 0]
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     got = w.to_u64_np(ntt_cuda.ntt_fwd_tail(
         w.from_u64_np(e), w.from_u64_np(acc), w.from_u64_np(res), tabs,
         fix, msf, msf_p))
@@ -154,7 +154,7 @@ def test_plain_versions_vs_golden_other_sizes(bits, n):
 
 
 def test_wrappers_check_their_arguments(q):
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     x = torch.zeros(2, N, dtype=torch.int64)
     with pytest.raises(TypeError):
         ntt_cuda.ntt_fwd(x.to(torch.int32), tabs)
@@ -168,7 +168,7 @@ def test_wrappers_check_their_arguments(q):
 
 def test_cpu_tensors_launch_nothing(q):
     ntt_cuda.reset_launch_counts()
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     x = torch.zeros(2, N, dtype=torch.int64)
     ntt_cuda.ntt_fwd(x, tabs)
     ntt_cuda.ntt_inv(x, tabs)

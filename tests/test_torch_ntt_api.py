@@ -43,7 +43,7 @@ def test_plain_matches_batched_butterfly_pallas_kernels():
     rng = np.random.default_rng(1)
     a = rng.integers(0, q, size=(8, N), dtype=np.uint64)
     a[0], a[1] = 0, q - 1
-    tabs = ntt_cuda.modulus_tables(N, q)
+    tabs = ntt_cuda.modulus_tables(N, q, device="cpu")
     f = run_port(ntt_cuda.ntt_fwd, a, tabs)
     np.testing.assert_array_equal(f, ntt_pallas.fwd_ntt(a, q, interpret=True))
     i = run_port(ntt_cuda.ntt_inv, a, tabs)
@@ -108,7 +108,7 @@ def wide_case():
     a[0] %= np.uint64(q)
     red = a % np.uint64(q)
     gt = twiddles.ntt_tables(WIDE, q, psi)
-    return (q, ntt_cuda.modulus_tables(WIDE, q, psi), a, red,
+    return (q, ntt_cuda.modulus_tables(WIDE, q, psi, device="cpu"), a, red,
             golden.fwd_ntt(red, q, gt), golden.inv_ntt(red, q, gt))
 
 
@@ -130,7 +130,7 @@ def test_n_beyond_the_kernels_is_refused():
     count their launches."""
     for n in (65536, 3, 1000, 2):
         with pytest.raises(ValueError, match=f"no NTT kernel serves n = {n}"):
-            ntt_cuda.modulus_tables(n, 1152921504606584833)
+            ntt_cuda.modulus_tables(n, 1152921504606584833, device="cpu")
     assert set(ntt_cuda.LAUNCHES) == {
         "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac"}
 

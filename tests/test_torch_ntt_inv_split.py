@@ -47,7 +47,7 @@ SPLIT_CASES = [(n, parts, bits) for n in SIZES for parts in (1, 2, 4)
 @pytest.mark.parametrize("n,parts,in_bits", SPLIT_CASES)
 def test_inverse_split_schedule_equals_golden(n, parts, in_bits):
     q, a, want = case(n, in_bits)
-    tabs = ntt_cuda.modulus_tables(n, q)
+    tabs = ntt_cuda.modulus_tables(n, q, device="cpu")
     np.testing.assert_array_equal(
         port(ntt_cuda.ntt_inv_plain, a, tabs, parts=parts), want)
 
@@ -64,7 +64,7 @@ def pallas_case():
 @pytest.mark.parametrize("parts", (1, 2, 4))
 def test_inverse_split_schedule_equals_pallas_inverse(parts):
     q, red, ref = pallas_case()
-    tabs = ntt_cuda.modulus_tables(PALLAS_N, q)
+    tabs = ntt_cuda.modulus_tables(PALLAS_N, q, device="cpu")
     np.testing.assert_array_equal(
         port(ntt_cuda.ntt_inv_plain, red, tabs, parts=parts), ref)
 
@@ -72,7 +72,7 @@ def test_inverse_split_schedule_equals_pallas_inverse(parts):
 @pytest.mark.parametrize("n,parts", [(n, p) for n in (8, 2048) for p in (1, 2, 4)])
 def test_cpu_tensor_under_a_forced_split_takes_the_plain_version(n, parts):
     q, a, want = case(n, 64)
-    tabs = ntt_cuda.modulus_tables(n, q)
+    tabs = ntt_cuda.modulus_tables(n, q, device="cpu")
     ntt_cuda.reset_launch_counts()
     np.testing.assert_array_equal(port(ntt_cuda.ntt_inv, a, tabs, parts), want)
     assert ntt_cuda.LAUNCHES["ntt_inv"] == 0
@@ -82,7 +82,7 @@ def test_round_trip_under_every_split():
     """ntt_inv_plain undoes ntt_fwd_plain whatever split either takes."""
     q, a, _ = case(2048, 53)
     red = a % np.uint64(q)
-    tabs = ntt_cuda.modulus_tables(2048, q)
+    tabs = ntt_cuda.modulus_tables(2048, q, device="cpu")
     for fwd_parts in (1, 2, 4):
         f = ntt_cuda.ntt_fwd_plain(w.from_u64_np(red), tabs, fwd_parts)
         for inv_parts in (1, 2, 4):
@@ -108,10 +108,10 @@ def test_forced_inverse_split_is_checked():
     fits one block's shared memory: at n = 32768 2 or 4, not 1."""
     q = int(nt.generate_primes(1, 61, 32768)[0])
     x = torch.zeros(1, 32768, dtype=torch.int64)
-    tabs = ntt_cuda.modulus_tables(32768, q)
+    tabs = ntt_cuda.modulus_tables(32768, q, device="cpu")
     with pytest.raises(ValueError, match="a piece of 32768 values takes 278520 bytes"):
         ntt_cuda.ntt_inv(x, tabs, 1)
     assert torch.equal(ntt_cuda.ntt_inv(x, tabs, 2), x)  # INTT(0) = 0
     with pytest.raises(ValueError, match="parts"):
         ntt_cuda.ntt_inv(torch.zeros(1, 4, dtype=torch.int64),
-                         ntt_cuda.modulus_tables(4, 17), 4)
+                         ntt_cuda.modulus_tables(4, 17, device="cpu"), 4)

@@ -46,7 +46,7 @@ SPLIT_CASES = [(n, parts, bits) for n in SIZES for parts in (1, 2, 4)
 @pytest.mark.parametrize("n,parts,in_bits", SPLIT_CASES)
 def test_split_schedule_equals_golden(n, parts, in_bits):
     q, a, want = case(n, in_bits)
-    tabs = ntt_cuda.modulus_tables(n, q)
+    tabs = ntt_cuda.modulus_tables(n, q, device="cpu")
     np.testing.assert_array_equal(
         port(ntt_cuda.ntt_fwd_plain, a, tabs, parts=parts), want)
     # a CPU tensor takes the plain version under any forced split
@@ -66,7 +66,7 @@ def pallas_case():
 @pytest.mark.parametrize("parts", (1, 2, 4))
 def test_split_schedule_equals_pallas_forward(parts):
     q, red, ref = pallas_case()
-    tabs = ntt_cuda.modulus_tables(PALLAS_N, q)
+    tabs = ntt_cuda.modulus_tables(PALLAS_N, q, device="cpu")
     np.testing.assert_array_equal(
         port(ntt_cuda.ntt_fwd_plain, red, tabs, parts=parts), ref)
 
@@ -79,7 +79,7 @@ def test_tail_split_equals_whole_row(n, parts):
     res = rng.integers(0, q, size=e.shape, dtype=np.uint64)
     msf = int(rng.integers(1, q))
     args = [w.from_u64_np(x) for x in (e, acc, res)]
-    args += [ntt_cuda.modulus_tables(n, q), q - 12345, msf, (msf << 64) // q]
+    args += [ntt_cuda.modulus_tables(n, q, device="cpu"), q - 12345, msf, (msf << 64) // q]
     whole = ntt_cuda.ntt_fwd_tail_plain(*args, parts=1)
     assert torch.equal(ntt_cuda.ntt_fwd_tail_plain(*args, parts=parts), whole)
     assert torch.equal(ntt_cuda.ntt_fwd_tail(*args, parts=parts), whole)
@@ -111,20 +111,20 @@ def test_row_split_at_the_paths_shapes():
     assert ntt_cuda.split_blocks_per_sm(16384, 1) == 1  # 128 KB: one an SM
     with pytest.raises(ValueError, match="parts"):
         ntt_cuda.ntt_fwd_plain(torch.zeros(1, 4, dtype=torch.int64),
-                               ntt_cuda.modulus_tables(4, 17), parts=4)
+                               ntt_cuda.modulus_tables(4, 17, device="cpu"), parts=4)
 
 
 def test_forced_split_is_checked():
     """A caller's parts must be 1, 2 or 4, at most n/2, and give a piece that
     fits one block's shared memory: at n = 32768 2 or 4, not 1."""
     x = torch.zeros(1, 32768, dtype=torch.int64)
-    tabs = ntt_cuda.modulus_tables(32768, int(nt.generate_primes(1, 61, 32768)[0]))
+    tabs = ntt_cuda.modulus_tables(32768, int(nt.generate_primes(1, 61, 32768)[0]), device="cpu")
     with pytest.raises(ValueError, match="a piece of 32768 values takes 278520 bytes"):
         ntt_cuda.ntt_fwd(x, tabs, 1)
     assert torch.equal(ntt_cuda.ntt_fwd(x, tabs, 4), x)  # NTT(0) = 0
     with pytest.raises(ValueError, match="parts"):
         ntt_cuda.ntt_fwd(torch.zeros(1, 64, dtype=torch.int64),
-                         ntt_cuda.modulus_tables(64, 257), 3)
+                         ntt_cuda.modulus_tables(64, 257, device="cpu"), 3)
 
 
 @pytest.mark.parametrize("rows", (1, 32, 256))
@@ -144,7 +144,7 @@ def test_one_block_a_row_refused_at_n_32768(kernel):
     """A forced C = 1 at n = 32768 is refused with the piece's size, on any
     device, before any kernel or plain version runs."""
     q = int(nt.generate_primes(1, 61, 32768)[0])
-    tabs = ntt_cuda.modulus_tables(32768, q)
+    tabs = ntt_cuda.modulus_tables(32768, q, device="cpu")
     x = torch.zeros(2, 32768, dtype=torch.int64)
     call = {"ntt_fwd": lambda: ntt_cuda.ntt_fwd(x, tabs, 1),
             "ntt_inv": lambda: ntt_cuda.ntt_inv(x, tabs, 1),

@@ -6,7 +6,7 @@
 Needs one CUDA device, nvcc, and nothing from the network.  It
 
   1. builds the CUDA kernels from hexl_fpga_tpu_torch/csrc/ (one nvcc per
-     source, side by side),
+     source) and the C++ runtime from cpp/src (g++, no cmake), side by side,
   2. holds the split kernels `ntt_fwd`, `ntt_fwd_tail`, `ntt_inv` and
      `ntt_fwd_mac` against their plain versions over n = 4 .. 32768 (at
      n = 16384 rows 1 .. 256, at 32768 rows 1, 5 and 32), moduli of 30 and
@@ -65,8 +65,10 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      (64, 16384) (`rows_2B`) and `_INTT`'s (256, 16384), `ntt_fwd_mac` at 192
      and 160 rows (`with_skipped_limb`),
   7. drives `wire_pack`: the main path's 64 ops through the API with
-     HEXL_TPU_WIRE_PACK=1 (52-bit words both ways), every op against the
-     golden model, its rate beside the unpacked run's, the bytes each way,
+     HEXL_TPU_WIRE_PACK=1 (52-bit words both ways; the host codec the C++
+     library's, then NumPy's), every op against the golden model, both
+     rates beside the unpacked run's, the bytes each way, the two codecs
+     against each other on a batch with values of 2^52 and above,
   8. drives `ckks_path` at the SEAL bridge's configuration (n = 16384,
      moduli of 52, 40 x 5, 52 bits, scale 2^40): encrypt three vectors, then
      on the evaluator multiply_relin, rescale, rotate, add, conjugate,
@@ -95,7 +97,23 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      multiply's shapes; ms a batch eager and replayed, the dependent-chain
      rate, peak device memory, the host's seconds,
  11. runs the frozen vector 16384_5_7_6_2_0 (an idle modulus: K > L + 1)
-     through the device context against its expected output.
+     through the device context against its expected output,
+ 12. drives `cpp_path`: hexl-fpga.h through the C++ runtime with the port
+     registered as its accelerator backend (`cpp_bridge`; the pool created
+     with batches of 32 KeySwitch / DyadicMultiply and 256 transforms):
+     the main path's 64 KeySwitch ops under the v2 ABI, then under v1
+     alone, each against the golden model, on a fresh registration (one key
+     upload) and again on the same one (none); two ops accumulating into
+     one result within one worksize against the device context applied
+     twice; all eight frozen vectors of tests/testdata against their
+     expected output; the dyadic path's 64 ops against its oracle; 1024
+     _NTT and 1024 _INTT at n = 16384 with the C++ runtime's own tables
+     (equal to the port's) against the golden transforms and the round
+     trip; the 64 KeySwitch ops again with two C++ workers on the one card
+     (NUM_DEV = 2).  No decline, no error, every op served by the backend,
+     the launches per served batch (7 / 7 / 6, 1, 1); the C API's rates
+     beside the Python API's, batches by ABI version, the library's build
+     seconds.
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -103,14 +121,17 @@ line; the last line is {"ok": true, "device": {...}}.  Exit code 0 only if all
 of it passed.
 
 `main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
-a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 11) with the
-kernels' plain versions (no build, no kernel comparison, no timings): a check
-of the script, not of the card.  Each phase prints its seconds (`s`).
+a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 11, the four small
+vectors in phase 12) with the kernels' plain versions (no nvcc build, no
+kernel comparison, no timings; the C++ runtime built by g++): a check of the
+script, not of the card.  Each phase prints its seconds (`s`).
 """
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -122,17 +143,17 @@ import numpy as np
 import torch
 
 import hexl_fpga_tpu_torch as hexl
-from hexl_fpga_tpu_torch import config as config_mod
+from hexl_fpga_tpu_torch import config as config_mod, cpp_bridge
 from hexl_fpga_tpu_torch.integrations import bfv, bgv, ckks
 from hexl_fpga_tpu_torch.integrations.ckks import (
     MATVEC_DIAGONALS, MATVEC_N1, SEAL_N, SEAL_SCALE, seal_moduli,
 )
 from hexl_fpga_tpu_torch.ops import (
     dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, rns_behz,
-    rns_behz_cuda, twiddles, word64 as w,
+    rns_behz_cuda, twiddles, wirepack, word64 as w,
 )
 from hexl_fpga_tpu_torch.runtime import scheduler
-from hexl_fpga_tpu_torch.utils import cuda_timing, vectors
+from hexl_fpga_tpu_torch.utils import cuda_timing, keycache, vectors
 from hexl_fpga_tpu_torch.utils.cuda_timing import event_ms as time_ms, rotating
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -884,7 +905,10 @@ def drive_dyadic(op1, op2, n, moduli):
     return results, time.perf_counter() - t0
 
 
-def dyadic_path(device, rehearse):
+@functools.lru_cache(maxsize=1)
+def dyadic_data(rehearse):
+    """The DyadicMultiply path's WORKSIZE operand pairs (n, moduli, op1, op2)
+    and their oracle outputs (want, seconds); cpp_path drives the same."""
     n = 1024 if rehearse else DYADIC_N
     M = DYADIC_MODULI
     moduli = [int(q) for q in nt.generate_primes(M, DYADIC_BITS, n)]
@@ -899,7 +923,12 @@ def dyadic_path(device, rehearse):
         np.testing.assert_array_equal(
             want[i].reshape(-1), golden.dyadic_multiply(op1[i], op2[i], n, moduli, M),
             err_msg=f"oracles disagree, op {i}")
-    oracle_s = time.perf_counter() - t0
+    return n, moduli, op1, op2, want, time.perf_counter() - t0
+
+
+def dyadic_path(device, rehearse):
+    n, moduli, op1, op2, want, oracle_s = dyadic_data(rehearse)
+    M = len(moduli)
 
     start_runtime(rehearse, BATCH_SIZE_DYADIC_MULTIPLY=BATCH)
     first, _ = drive_dyadic(op1, op2, n, moduli)  # uploads the constants
@@ -953,9 +982,11 @@ def drive_transform(ops, call, set_worksize, completed):
     return bufs, time.perf_counter() - t0
 
 
-def ntt_cell(device, rehearse, n, bits, count, batch):
-    """`count` _NTT ops, then `count` _INTT ops on their results, at (n, one
-    prime of `bits` bits) with the caller's tables, in batches of `batch`."""
+@functools.lru_cache(maxsize=2)
+def ntt_data(n, bits, count):
+    """`count` operands at (n, one prime of `bits` bits), the modulus, its
+    tables and the golden forward transforms (the inverse checked to give
+    the operands back); cpp_path drives the n = 16384 cell's."""
     q = int(nt.generate_primes(1, bits, n)[0])
     t = twiddles.ntt_tables(n, q)
     rng = np.random.default_rng(n)
@@ -964,7 +995,13 @@ def ntt_cell(device, rehearse, n, bits, count, batch):
     want_fwd = golden.fwd_ntt(src, q, t)
     want_inv = golden.inv_ntt(want_fwd, q, t)
     np.testing.assert_array_equal(want_inv, src)
-    golden_s = time.perf_counter() - t0
+    return q, t, src, want_fwd, time.perf_counter() - t0
+
+
+def ntt_cell(device, rehearse, n, bits, count, batch):
+    """`count` _NTT ops, then `count` _INTT ops on their results, at (n, one
+    prime of `bits` bits) with the caller's tables, in batches of `batch`."""
+    q, t, src, want_fwd, golden_s = ntt_data(n, bits, count)
 
     start_runtime(rehearse, BATCH_SIZE_NTT=batch, BATCH_SIZE_INTT=batch)
     fwd = lambda b: hexl._NTT(b, t.fwd, t.fwd_precon, q, n)
@@ -1013,7 +1050,8 @@ def ntt_path(device, rehearse):
         cells.append(ntt_cell(device, rehearse, n, bits, count, batch))
     launches = {}
     for c in cells:
-        launches.update(c["launches"])
+        for k, v in c["launches"].items():
+            launches[k] = launches.get(k, 0) + v
     return {"cells": cells, "launches": launches}
 
 
@@ -1178,12 +1216,36 @@ def device_path(vec, device, rehearse):
 # ---------------------------------------------------------------------------
 
 
+def check_wire_codecs(vec, ops):
+    """The native codec against NumPy's on one batch of the path's operands,
+    with values of 2^52 and above in it (each corrupts only its own field),
+    both ways; each codec's host ms on that batch."""
+    r = np.stack([o[0] for o in ops[:BATCH]])
+    r[0, :8] |= np.uint64(0xFFF) << np.uint64(52)
+    packed = wirepack.pack_u64_native(r)
+    np.testing.assert_array_equal(packed, wirepack.pack_u64_np(r))
+    back = wirepack.unpack_u64_native(packed)
+    np.testing.assert_array_equal(back, wirepack.unpack_u64_np(packed))
+    np.testing.assert_array_equal(back, r & np.uint64((1 << 52) - 1))
+    ms = {}
+    for name, fn, x in (("pack_native", wirepack.pack_u64_native, r),
+                        ("pack_numpy", wirepack.pack_u64_np, r),
+                        ("unpack_native", wirepack.unpack_u64_native, packed),
+                        ("unpack_numpy", wirepack.unpack_u64_np, packed)):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn(x)
+        ms[name] = (time.perf_counter() - t0) / 3 * 1e3
+    return {"values": int(r.size), "host_ms": ms}
+
+
 def wire_pack_path(vec, device, rehearse, ops, want, unpacked_ops_per_s):
     """The main path's WORKSIZE ops through the API with HEXL_TPU_WIRE_PACK=1
     (52-bit words both ways over the copy stream, unpacked and packed on the
-    card): every op against the golden model, so against the unpacked
-    path's output too; the packed rate beside the unpacked one, and the
-    bytes each way per batch, packed and not."""
+    card; the host codec the native one): every op against the golden
+    model, so against the unpacked path's output too; the rate beside the
+    unpacked one, the bytes each way per batch, packed and not, and the
+    native codec against NumPy's, with each codec's host time on a batch."""
     n, L = vec.coeff_count, vec.decomp_modulus_size
     os.environ["HEXL_TPU_WIRE_PACK"] = "1"
     try:
@@ -1210,6 +1272,7 @@ def wire_pack_path(vec, device, rehearse, ops, want, unpacked_ops_per_s):
            "bytes_out_per_batch": words(2 * L),
            "unpacked_bytes_in_per_batch": BATCH * 3 * L * n * 8,
            "unpacked_bytes_out_per_batch": BATCH * 2 * L * n * 8}
+    out["codecs"] = check_wire_codecs(vec, ops)
     if not rehearse:
         out["api_ops_per_s"] = WORKSIZE / wall_s
         out["unpacked_api_ops_per_s"] = unpacked_ops_per_s
@@ -1725,10 +1788,280 @@ def idle_modulus_vector(device, rehearse):
             "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the C++ runtime (hexl-fpga.h) served by the port
+# ---------------------------------------------------------------------------
+
+# the C++ pool reads these once, when it is created (runtime.cpp:23-35)
+CPP_POOL_ENV = {"BATCH_SIZE_KEYSWITCH": BATCH, "BATCH_SIZE_DYADIC_MULTIPLY": BATCH,
+                "BATCH_SIZE_NTT": 256, "BATCH_SIZE_INTT": 256, "NUM_DEV": 1}
+CPP_VECTORS = ("1024_2_3_3_2_0.json", "1024_2_3_3_2_1.json",
+               "1024_5_7_6_2_0.json", "2048_3_4_4_2_0.json",
+               "8192_5_7_6_2_0.json.gz", "8192_6_7_7_2_0.json.gz",
+               "16384_5_7_6_2_0.json.gz", "16384_6_7_7_2_0.json.gz")
+
+
+def cpp_acquire(rt, rehearse, **pool):
+    """Create the C++ pool with CPP_POOL_ENV (updated by `pool`) and the
+    backend route (RUN_CHOICE >= 1), then put the environment back as it
+    was."""
+    env = {**{k: str(v) for k, v in {**CPP_POOL_ENV, **pool}.items()},
+           "RUN_CHOICE": "1" if rehearse else "2"}
+    keep = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        rt.acquire()
+    finally:
+        for k, v in keep.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def c_keyswitch_config(v):
+    """The C arguments of a vector's configuration: (n, L, K, rns, comp,
+    moduli, keys, msf, twiddles), pointers into arrays that stay alive in
+    the returned list's last element."""
+    keep = [np.ascontiguousarray(a, dtype=np.uint64) for a in (
+        v.moduli, v.modswitch_factors, v.twiddle_factors, *v.key_vectors)]
+    P = cpp_bridge._np_ptr
+    keys = (cpp_bridge.u64_p * v.decomp_modulus_size)(
+        *[P(k) for k in keep[3:]])
+    return ((v.coeff_count, v.decomp_modulus_size, v.key_modulus_size,
+             v.rns_modulus_size, v.key_component_count, P(keep[0]), keys,
+             P(keep[1]), P(keep[2])), keep + [keys])
+
+
+def drive_cpp_keyswitch(rt, v, ops):
+    """hexl_tpu_set_worksize_keyswitch(len(ops)) -> one hexl_tpu_keyswitch per
+    (result, t_target) pair into copies of the results ->
+    hexl_tpu_keyswitch_completed(); returns the results and the seconds of
+    those C calls."""
+    (n, L, K, rns, comp, moduli, keys, msf, tw), keep = c_keyswitch_config(v)
+    results = [np.array(r, dtype=np.uint64) for r, _ in ops]
+    targets = [np.ascontiguousarray(t, dtype=np.uint64) for _, t in ops]
+    ptrs = [(cpp_bridge._np_ptr(r), cpp_bridge._np_ptr(t))
+            for r, t in zip(results, targets)]
+    t0 = time.perf_counter()
+    rt.lib.hexl_tpu_set_worksize_keyswitch(len(ops))
+    for r, t in ptrs:
+        rt.lib.hexl_tpu_keyswitch(r, t, n, L, K, rns, comp, moduli, keys, msf, tw)
+    assert rt.lib.hexl_tpu_keyswitch_completed()
+    return results, time.perf_counter() - t0
+
+
+def drive_cpp_dyadic(rt, op1, op2, moduli):
+    """The DyadicMultiply worksize through the C API; (results, seconds)."""
+    M, n = op1.shape[2], op1.shape[3]
+    q = np.ascontiguousarray(moduli, dtype=np.uint64)
+    results = [np.zeros(3 * M * n, dtype=np.uint64) for _ in range(len(op1))]
+    P = cpp_bridge._np_ptr
+    ptrs = [(P(r), P(np.ascontiguousarray(a)), P(np.ascontiguousarray(b)))
+            for r, a, b in zip(results, op1, op2)]
+    t0 = time.perf_counter()
+    rt.lib.hexl_tpu_set_worksize_dyadic_multiply(len(results))
+    for r, a, b in ptrs:
+        rt.lib.hexl_tpu_dyadic_multiply(r, a, b, n, P(q), M)
+    assert rt.lib.hexl_tpu_dyadic_multiply_completed()
+    return results, time.perf_counter() - t0
+
+
+def drive_cpp_transform(rt, operands, inverse, tables, q, n):
+    """The _NTT (or _INTT) worksize through the C API on copies of
+    `operands`, with the caller's tables from hexl_tpu_make_ntt_tables;
+    (results, seconds)."""
+    fwd, fwd_p, inv, inv_p, inv_n, inv_n_w = tables
+    P = cpp_bridge._np_ptr
+    bufs = [np.array(o, dtype=np.uint64) for o in operands]
+    ptrs = [P(b) for b in bufs]
+    L = rt.lib
+    t0 = time.perf_counter()
+    if inverse:
+        L.hexl_tpu_set_worksize_intt(len(bufs))
+        for b in ptrs:
+            L.hexl_tpu_intt(b, P(inv), P(inv_p), q, inv_n, inv_n_w, n)
+        assert L.hexl_tpu_intt_completed()
+    else:
+        L.hexl_tpu_set_worksize_ntt(len(bufs))
+        for b in ptrs:
+            L.hexl_tpu_ntt(b, P(fwd), P(fwd_p), q, n)
+        assert L.hexl_tpu_ntt_completed()
+    return bufs, time.perf_counter() - t0
+
+
+def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
+    """hexl-fpga.h through the C++ runtime (the port's g++ build of cpp/),
+    its accelerator backend the port's (`register_torch_backend`), every
+    output against an oracle: KeySwitch (64 ops at the main path's
+    configuration, v2 then v1 alone, against golden_ops), two ops
+    accumulating into one result, every frozen vector, DyadicMultiply
+    (dyadic_data's oracle) and _NTT / _INTT (golden transforms, the round
+    trip), then KeySwitch again with two C++ workers (NUM_DEV = 2).  Each
+    run asserts no decline and no error, every op served by the backend in
+    at least ceil(ops / batch) batches, and the launches per served batch;
+    the C API's rates beside the Python API's."""
+    n, L = vec.coeff_count, vec.decomp_modulus_size
+    rt = cpp_bridge.NativeRuntime()
+    cpp_acquire(rt, rehearse)
+    out = {"library": os.path.relpath(rt.lib._name, HERE),
+           "library_build_s": build_s, "pool": CPP_POOL_ENV, "runs": {}}
+    totals = {}
+
+    def run(name, fn, op, count, per_batch, batch, abi="v2", bodies=None):
+        """fn() once with every count at 0; the run's launches (per_batch
+        times the served batches, or times `bodies`), served batches and key
+        uploads, asserted; returns fn's value."""
+        rt.backend_stats(clear=True)
+        reset_all_counts()
+        keycache.UPLOADS["key_sets"] = 0
+        value = fn()
+        launches, stats = launches_now(), rt.backend_stats(clear=True)
+        assert stats["declines"] == [] and stats["errors"] == [], stats
+        batches = stats["batches"].get(abi, {}).get(op, 0)
+        assert stats["batches"] == {abi: {op: batches}}, stats
+        assert stats["ops"] == {abi: {op: count}}, stats
+        assert batches >= math.ceil(count / batch), (batches, count, batch)
+        expected = {} if rehearse else {
+            k: b * (bodies or batches) for k, b in per_batch.items()}
+        assert launches == expected, (name, launches, expected)
+        for k, c in launches.items():
+            totals[k] = totals.get(k, 0) + c
+        out["runs"][name] = {"ops": count, "abi": abi, "batches": batches,
+                             "worker_threads": stats["threads"],
+                             "launches": launches,
+                             "key_uploads": keycache.UPLOADS["key_sets"]}
+        return value
+
+    def keyswitch_launches(L):
+        return {"ntt_fwd": L + 1, "ntt_inv": L + 1, "ntt_fwd_tail": L}
+
+    try:
+        # 1. the main path's 64 ops, under v2 then under v1 alone: a fresh
+        # registration stages the key set once (cold), a second stream on
+        # it finds it staged (warm, as the Python API's counted pass)
+        for abi in ("v2", "v1"):
+            rt.register_torch_backend(pipelined=abi == "v2", device=device)
+            for name, uploads in ((f"keyswitch_{abi}", 1),
+                                  (f"keyswitch_{abi}_warm", 0)):
+                results, wall_s = run(name, lambda: drive_cpp_keyswitch(rt, vec, ops),
+                                      "KEYSWITCH", len(ops), keyswitch_launches(L),
+                                      BATCH, abi)
+                for i, exp in enumerate(want):
+                    np.testing.assert_array_equal(results[i], exp,
+                                                  err_msg=f"{name}, op {i}")
+                assert out["runs"][name]["key_uploads"] == uploads, out["runs"][name]
+                if not rehearse:
+                    out["runs"][name]["cpp_api_ops_per_s"] = len(ops) / wall_s
+        rt.register_torch_backend(pipelined=True, device=device)
+
+        # 2. two ops accumulating into one result within one worksize
+        ctx = keyswitch_cuda.get_context(
+            n, L, vec.key_modulus_size, vec.rns_modulus_size, 2, vec.moduli,
+            vec.twiddle_factors, device=device)
+        r, t = ops[N_VECTOR_OPS]
+        keyed = (vec.key_vectors, vec.modswitch_factors)
+        twice = ctx.run_batch(ctx.run_batch(r[None], t[None], *keyed), t[None], *keyed)
+        (cn, cL, cK, rns, comp, moduli, keys, msf, tw), keep = c_keyswitch_config(vec)
+        result = np.array(r, dtype=np.uint64)
+
+        def accumulate():
+            rt.lib.hexl_tpu_set_worksize_keyswitch(2)
+            for _ in range(2):
+                rt.lib.hexl_tpu_keyswitch(
+                    cpp_bridge._np_ptr(result), cpp_bridge._np_ptr(t), cn, cL,
+                    cK, rns, comp, moduli, keys, msf, tw)
+            assert rt.lib.hexl_tpu_keyswitch_completed()
+
+        # the two ops may share a batch, which the backend then runs in two
+        # pieces: two bodies either way
+        run("accumulate_pair", accumulate, "KEYSWITCH", 2, keyswitch_launches(L),
+            2, bodies=2)
+        np.testing.assert_array_equal(result, twice[0], err_msg="accumulate pair")
+
+        # 3. every frozen vector (the four small ones in rehearsal)
+        checked = []
+        for name in CPP_VECTORS[:4] if rehearse else CPP_VECTORS:
+            v = vec if name == os.path.basename(VECTOR) else vectors.load_json(
+                os.path.join(HERE, "tests", "testdata", name))
+            pair = [(v.input, v.t_target_iter_ptr)]
+            (got,), _ = run(name, lambda: drive_cpp_keyswitch(rt, v, pair),
+                            "KEYSWITCH", 1, keyswitch_launches(v.decomp_modulus_size), 1)
+            np.testing.assert_array_equal(got, v.expected_output, err_msg=name)
+            checked.append(name)
+        out["vectors_checked_vs_expected_output"] = checked
+
+        # 4. DyadicMultiply, the dyadic path's ops
+        dn, dmoduli, op1, op2, dwant, _ = dyadic_data(rehearse)
+        results, wall_s = run("dyadic", lambda: drive_cpp_dyadic(rt, op1, op2, dmoduli),
+                              "DYADIC_MULTIPLY", len(op1), {"dyadic_mul": 1}, BATCH)
+        for i in range(len(op1)):
+            np.testing.assert_array_equal(results[i], dwant[i].reshape(-1),
+                                          err_msg=f"dyadic op {i}")
+        if not rehearse:
+            out["runs"]["dyadic"]["cpp_api_ops_per_s"] = len(op1) / wall_s
+
+        # 5. _NTT / _INTT with the C++ runtime's own tables
+        tn, bits, count, tbatch = NTT_CELLS[0]
+        if rehearse:
+            tn, count = 1024, 64
+        q, tabs, src, want_fwd, _ = ntt_data(tn, bits, count)
+        made = rt.make_ntt_tables(tn, q)
+        for got_t, exp_t in zip(made, (tabs.fwd, tabs.fwd_precon, tabs.inv,
+                                       tabs.inv_precon, tabs.inv_n, tabs.inv_n_w)):
+            np.testing.assert_array_equal(got_t, exp_t, err_msg="C++ tables")
+        fwd, fwd_s = run("ntt", lambda: drive_cpp_transform(rt, src, False, made, q, tn),
+                         "NTT", count, {"ntt_fwd": 1}, tbatch)
+        np.testing.assert_array_equal(np.stack(fwd), want_fwd)
+        back, inv_s = run("intt", lambda: drive_cpp_transform(rt, fwd, True, made, q, tn),
+                          "INTT", count, {"ntt_inv": 1}, tbatch)
+        np.testing.assert_array_equal(np.stack(back), src)  # the round trip
+        if not rehearse:
+            out["runs"]["ntt"]["cpp_api_ops_per_s"] = count / fwd_s
+            out["runs"]["intt"]["cpp_api_ops_per_s"] = count / inv_s
+        out["ntt"] = {"n": tn, "modulus_bits": bits, "tables_equal_port_twiddles": True}
+
+        # 6. two C++ workers on the one card (NUM_DEV = 2): an executor each,
+        # both on device index k % device_count = 0
+        rt.clear_backend()
+        rt.release()
+        cpp_acquire(rt, rehearse, NUM_DEV=2)
+        rt.register_torch_backend(pipelined=True, device=device)
+        results, wall_s = run("keyswitch_v2_num_dev_2",
+                              lambda: drive_cpp_keyswitch(rt, vec, ops),
+                              "KEYSWITCH", len(ops), keyswitch_launches(L), BATCH)
+        for i, exp in enumerate(want):
+            np.testing.assert_array_equal(results[i], exp, err_msg=f"NUM_DEV=2, op {i}")
+        assert out["runs"]["keyswitch_v2_num_dev_2"]["key_uploads"] == 1
+        if not rehearse:
+            out["runs"]["keyswitch_v2_num_dev_2"]["cpp_api_ops_per_s"] = len(ops) / wall_s
+    finally:
+        rt.clear_backend()
+        rt.release()
+
+    out["launches"] = totals
+    out["batches_by_abi"] = {}
+    for r in out["runs"].values():
+        out["batches_by_abi"][r["abi"]] = out["batches_by_abi"].get(r["abi"], 0) + r["batches"]
+    out["key_uploads_per_keyswitch_run"] = {
+        k: r["key_uploads"] for k, r in out["runs"].items()
+        if k.startswith("keyswitch_")}
+    if not rehearse:
+        out["python_api_ops_per_s"] = python_rates
+    return out
+
+
+def seconds_of(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
 def main(rehearse: bool = False) -> int:
     if rehearse:
         device = torch.device("cpu")
         vec = vectors.make_keyswitch_vector(1024, 6, 7, seed=5, modulus_bits=50)
+        cpp_build_s = seconds_of(cpp_bridge.build_library)
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1739,11 +2072,14 @@ def main(rehearse: bool = False) -> int:
             capture_output=True, text=True, check=True,
         ).stdout.strip().splitlines()[0]
         t0 = time.perf_counter()
-        with ThreadPoolExecutor(2) as pool:  # one nvcc per source, together
-            for built in [pool.submit(ntt_cuda.build_kernels),
-                          pool.submit(dyadic_cuda.build_kernels)]:
-                built.result()
+        # one nvcc per source and the C++ runtime's g++ build, together
+        with ThreadPoolExecutor(3) as pool:
+            builds = [pool.submit(ntt_cuda.build_kernels),
+                      pool.submit(dyadic_cuda.build_kernels),
+                      pool.submit(seconds_of, cpp_bridge.build_library)]
+            cpp_build_s = [b.result() for b in builds][-1]
         emit({"device": smi, "kernel_build_s": time.perf_counter() - t0,
+              "cpp_library_build_s": cpp_build_s,
               "torch": torch.__version__, "cuda": torch.version.cuda})
         vec = vectors.load_json(VECTOR)
 
@@ -1776,6 +2112,14 @@ def main(rehearse: bool = False) -> int:
     run("bgv_path", bgv_path, vec, device, rehearse)
     run("bfv_path", bfv_path, vec, device, rehearse)
     run("16384_5_7_6_2_0", idle_modulus_vector, device, rehearse)
+    python_rates = {
+        "keyswitch": paths["main_path"].get("api_ops_per_s"),
+        "dyadic": paths["dyadic_path"].get("api_ops_per_s"),
+        "ntt": paths["ntt_path"]["cells"][0].get("ntt_api_ops_per_s"),
+        "intt": paths["ntt_path"]["cells"][0].get("intt_api_ops_per_s"),
+    }
+    run("cpp_path", cpp_path, vec, device, rehearse, ops, want, python_rates,
+        cpp_build_s)
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
     profile_kernels()

@@ -40,10 +40,11 @@ def interleaved_to_i64(x32, device="cpu") -> torch.Tensor:
     return w.from_u64_np(x32.view(np.uint64), device)
 
 
-def staged_keys_from_pairs(klo, khi, plo, phi, device="cpu"):
+def staged_keys_from_pairs(klo, khi, plo, phi, device="cuda"):
     """The reference's staged `(klo, khi, plo, phi)` key and precon planes,
     each (L, comp, K, n) uint32 -> this package's (keys, precons) int64
-    tensors of the same shape."""
+    tensors of the same shape, on `device` (the card unless the caller asks
+    for the CPU, as the reference stages them on its accelerator)."""
     return pair_to_i64(klo, khi, device), pair_to_i64(plo, phi, device)
 
 
@@ -119,10 +120,11 @@ def scheme_context_from_state(n, moduli, s, relin_keys, rot_keys=None,
     return ctx
 
 
-def ckks_handle_from_data32(data32, level, scale, device="cpu"):
+def ckks_handle_from_data32(data32, level, scale, device="cuda"):
     """A reference DeviceCkksCiphertext's interleaved u32 `data32`
     ((2, level+1, 2n)) with its level and scale -> this package's
-    DeviceCkksCiphertext (one (2, level+1, n) int64 tensor on `device`)."""
+    DeviceCkksCiphertext (one (2, level+1, n) int64 tensor on `device`, the
+    card unless the caller asks for the CPU)."""
     from .integrations.ckks import DeviceCkksCiphertext
 
     return DeviceCkksCiphertext(interleaved_to_i64(data32, device), int(level),

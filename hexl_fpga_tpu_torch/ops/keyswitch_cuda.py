@@ -42,6 +42,7 @@ from __future__ import annotations
 import functools
 import hashlib
 import os
+import threading
 from collections import OrderedDict
 from math import gcd
 from typing import Optional, Sequence
@@ -100,6 +101,10 @@ class KeySwitchContext:
         self.fused_mac = fused_mac
         self.fused_tail = fused_tail
         self.mac_impl = mac_impl
+        # the key caches are shared by every worker thread that runs this
+        # context (NUM_DEV > 1, or the C++ runtime's workers): one stages a
+        # key set while the others wait for it
+        self._keys_lock = threading.Lock()
         assert self.K - 1 >= self.L, "special modulus must not be a decomp modulus"
         # 2n-th roots: derived from the caller's tables when provided
         # (fwd[bit_reverse(1)] = psi), else the canonical minimal root
@@ -367,25 +372,26 @@ class KeySwitchContext:
             return (w.from_u64_np(keys, self.device),
                     w.from_u64_np(self.key_precons(keys), self.device))
 
-        if hoist_perm is None:
-            if not hasattr(self, "_key_cache"):
-                self._key_cache = PinnedKeyCache(self.KEY_CACHE_SLOTS, _stage)
-            return self._key_cache.get(k_switch_keys)
-        p = np.asarray(hoist_perm, dtype=np.int64).reshape(self.n)
-        pid = hashlib.blake2b(p.tobytes(), digest_size=16).digest()
-        if not hasattr(self, "_key_cache_perm"):
-            self._key_cache_perm = OrderedDict()
-        cache = self._key_cache_perm.get(pid)
-        if cache is None:
-            inv = np.empty_like(p)
-            inv[p] = np.arange(self.n, dtype=np.int64)
-            cache = PinnedKeyCache(2, functools.partial(_stage, inv=inv))
-            self._key_cache_perm[pid] = cache
-            while len(self._key_cache_perm) > self.PERM_CACHE_SLOTS:
-                self._key_cache_perm.popitem(last=False)
-        else:
-            self._key_cache_perm.move_to_end(pid)
-        return cache.get(k_switch_keys)
+        with self._keys_lock:
+            if hoist_perm is None:
+                if not hasattr(self, "_key_cache"):
+                    self._key_cache = PinnedKeyCache(self.KEY_CACHE_SLOTS, _stage)
+                return self._key_cache.get(k_switch_keys)
+            p = np.asarray(hoist_perm, dtype=np.int64).reshape(self.n)
+            pid = hashlib.blake2b(p.tobytes(), digest_size=16).digest()
+            if not hasattr(self, "_key_cache_perm"):
+                self._key_cache_perm = OrderedDict()
+            cache = self._key_cache_perm.get(pid)
+            if cache is None:
+                inv = np.empty_like(p)
+                inv[p] = np.arange(self.n, dtype=np.int64)
+                cache = PinnedKeyCache(2, functools.partial(_stage, inv=inv))
+                self._key_cache_perm[pid] = cache
+                while len(self._key_cache_perm) > self.PERM_CACHE_SLOTS:
+                    self._key_cache_perm.popitem(last=False)
+            else:
+                self._key_cache_perm.move_to_end(pid)
+            return cache.get(k_switch_keys)
 
     def prepare_msf4(self, modswitch_factors) -> np.ndarray:
         """(K, 2) u64 [msf, precon] rows: the reduced modswitch factor and its
@@ -430,11 +436,12 @@ class KeySwitchContext:
 
     def pack_operands(self, results, t_targets):
         """Host side: (B, comp*L*n) results and (B, L*n) targets -> packed u32
-        words (B, comp, L, 13n/8) and (B, L, 13n/8) (ops/wirepack.py)."""
+        words (B, comp, L, 13n/8) and (B, L, 13n/8) (ops/wirepack.py's
+        native codec)."""
         B = np.asarray(results).shape[0]
         r = np.asarray(results, dtype=np.uint64).reshape(B, self.comp, self.L, self.n)
         t = np.asarray(t_targets, dtype=np.uint64).reshape(B, self.L, self.n)
-        return wirepack.pack_u64_np(r), wirepack.pack_u64_np(t)
+        return wirepack.pack_u64_native(r), wirepack.pack_u64_native(t)
 
     def dispatch_batch_packed(self, rp, tp, k_switch_keys, modswitch_factors):
         """Device side of the packed route: the int32 packed operands (as
@@ -451,7 +458,8 @@ class KeySwitchContext:
         out = self.dispatch_batch(results, t_targets, k_switch_keys,
                                   modswitch_factors)
         if out.dtype == torch.int32:  # packed words
-            return wirepack.unpack_u64_np(out.cpu().numpy().view(np.uint32)).reshape(B, -1)
+            return wirepack.unpack_u64_native(
+                out.cpu().numpy().view(np.uint32)).reshape(B, -1)
         return w.to_u64_np(out).reshape(B, -1)
 
     def run(self, result, t_target, k_switch_keys, modswitch_factors):

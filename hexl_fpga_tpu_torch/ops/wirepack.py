@@ -14,20 +14,26 @@ value >= 2^52 corrupts only its own field, never a neighbour's.
                          the host codec on u64 arrays (..., n) <-> (..., 13n/8)
                          u32, in NumPy: two groups at a time as 13 u64 words,
                          one pass per word over contiguous planes
+  pack_u64_native / unpack_u64_native
+                         the same on the host in C++ (`cpp/src/capi.cpp`
+                         hexl_tpu_pack52 / hexl_tpu_unpack52, OpenMP over
+                         groups), from this package's build of `cpp/`
+                         (`_native.build_library`, at first use): the host
+                         codec of the packed route to every device, the NumPy
+                         one its plain version; a failed build raises
   pack_np / unpack_np    the reference's interface to it, on the interleaved
                          u32 layout (..., 2n)
   pack / unpack          the device codec on int64 bit patterns (..., n) <->
                          int32 packed words (..., 13n/8): torch ops on int64
                          only (torch has no uint32 shifts on the CPU)
-
-The reference also loads a native codec from its C++ build; this package has
-no C++ bridge yet, so the host codec is NumPy.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import _native
 
 BITS = 52
 GROUP = 8                      # coefficients per pack group
@@ -99,6 +105,28 @@ def unpack_u64_np(p32: np.ndarray) -> np.ndarray:
     vals = np.ascontiguousarray(_shift_or_np(planes, _UNPACK_NP, _MASK52).T).reshape(-1)
     vals = vals[: vals.size - odd * GROUP]
     return vals.reshape(p32.shape[:-1] + (m // WORDS_OUT * GROUP,))
+
+
+def pack_u64_native(x: np.ndarray) -> np.ndarray:
+    """pack_u64_np's bits, by the C++ library's codec."""
+    x = np.ascontiguousarray(x, dtype=np.uint64)
+    n = x.shape[-1]
+    if n % GROUP:
+        raise ValueError(f"the last dimension ({n}) must be a multiple of {GROUP}")
+    out = np.empty(x.shape[:-1] + (n // GROUP * WORDS_OUT,), dtype=np.uint32)
+    _native.codec_library().hexl_tpu_pack52(x.ctypes.data, out.ctypes.data, x.size)
+    return out
+
+
+def unpack_u64_native(p32: np.ndarray) -> np.ndarray:
+    """unpack_u64_np's bits, by the C++ library's codec."""
+    p32 = np.ascontiguousarray(p32, dtype=np.uint32)
+    m = p32.shape[-1]
+    if m % WORDS_OUT:
+        raise ValueError(f"the last dimension ({m}) must be a multiple of {WORDS_OUT}")
+    out = np.empty(p32.shape[:-1] + (m // WORDS_OUT * GROUP,), dtype=np.uint64)
+    _native.codec_library().hexl_tpu_unpack52(p32.ctypes.data, out.ctypes.data, out.size)
+    return out
 
 
 def pack_np(x32: np.ndarray) -> np.ndarray:

@@ -93,8 +93,19 @@ def _scatter_to(batch, key: str, decode=None):
     def scatter(host):
         host = host.view(np.uint64) if decode is None else decode(host)
         host = host.reshape(len(batch), -1)
-        for b, item in enumerate(batch):
-            np.copyto(item.args[key], host[b].reshape(item.args[key].shape))
+        # every check comes before the first write, so a scatter that raises
+        # has written nothing (a failed finalize leaves the caller's buffers
+        # as they were): a copy into a writable array of the same shape, of a
+        # dtype it may cast to, cannot fail
+        pairs = [(item.args[key], host[b].reshape(item.args[key].shape))
+                 for b, item in enumerate(batch)]
+        for dst, src in pairs:
+            if not (dst.flags.writeable
+                    and np.can_cast(src.dtype, dst.dtype, "same_kind")):
+                raise ValueError(f"scatter: {key} must be a writable buffer "
+                                 f"that takes {src.dtype}, got {dst.dtype}")
+        for dst, src in pairs:
+            np.copyto(dst, src)
 
     return scatter
 
@@ -272,9 +283,9 @@ class TorchExecutor(_Base):
             [np.asarray(i.args["result"], dtype=np.uint64).ravel() for i in batch]
         )
         if ctx.wire_pack_enabled():
-            # 52-bit words both ways (HEXL_TPU_WIRE_PACK=1): the host packs,
-            # the copy stream moves packed words, the card unpacks and packs
-            # (the reference's dispatch_batch32p route)
+            # 52-bit words both ways (HEXL_TPU_WIRE_PACK=1): the host packs
+            # (the native codec), the copy stream moves packed words, the
+            # card unpacks and packs (the reference's dispatch_batch32p route)
             rp, tp = ctx.pack_operands(rs, ts)
 
             def stage_packed():
@@ -288,7 +299,7 @@ class TorchExecutor(_Base):
             return self._submit(
                 stage_packed, body_packed,
                 _scatter_to(batch, "result",
-                            lambda h: wirepack.unpack_u64_np(h.view(np.uint32))))
+                            lambda h: wirepack.unpack_u64_native(h.view(np.uint32))))
 
         def stage():  # the handles' own uploads
             return ctx.stage_ciphertext(rs).data, ctx.stage_target(ts).data

@@ -11,6 +11,7 @@ context and the sharded path.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 from typing import Callable, Sequence
 
@@ -45,6 +46,12 @@ def sampled_checksum(arrs: Sequence[np.ndarray]) -> int:
     return h
 
 
+# key sets staged (cache misses) by every PinnedKeyCache of the process, for
+# chip_smoke.py and the tests to count uploads by
+UPLOADS = {"key_sets": 0}
+_uploads_lock = threading.Lock()
+
+
 class PinnedKeyCache:
     """LRU of staged key uploads keyed by source-array identity."""
 
@@ -67,6 +74,8 @@ class PinnedKeyCache:
                 return hit
             del self._cache[kid]  # mutated or aliased: re-upload
         hit = self.stage(src)
+        with _uploads_lock:
+            UPLOADS["key_sets"] += 1
         self._cache[kid] = (src, sampled_checksum(src), hit)
         while len(self._cache) > self.slots:
             self._cache.popitem(last=False)

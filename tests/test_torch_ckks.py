@@ -302,7 +302,7 @@ def test_convert_round_trips(pair, ev, cts):
             np.testing.assert_array_equal(a, b)
     ct = cts[0]
     data32 = jw.to_interleaved_np(ct.data)
-    h = convert.ckks_handle_from_data32(data32, ct.level, ct.scale)
+    h = convert.ckks_handle_from_data32(data32, ct.level, ct.scale, device="cpu")
     assert torch.equal(h.data, ev.stage(ct).data)
     assert (h.level, h.scale) == (ct.level, ct.scale)
     np.testing.assert_array_equal(convert.ckks_handle_to_data32(h), data32)

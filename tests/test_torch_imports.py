@@ -13,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "hexl_fpga_tpu_torch", "hexl_fpga_tpu_torch.api", "hexl_fpga_tpu_torch.config",
     "hexl_fpga_tpu_torch.convert", "hexl_fpga_tpu_torch.ops._build",
+    "hexl_fpga_tpu_torch.ops._native",
     "hexl_fpga_tpu_torch.ops.dyadic_cuda", "hexl_fpga_tpu_torch.ops.galois_cuda",
     "hexl_fpga_tpu_torch.ops.golden", "hexl_fpga_tpu_torch.ops.keyswitch_cuda",
     "hexl_fpga_tpu_torch.ops.nt", "hexl_fpga_tpu_torch.ops.ntt_cuda",
@@ -25,6 +26,7 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.utils.cuda_timing",
     "hexl_fpga_tpu_torch.utils.sweep_row_split",
     "hexl_fpga_tpu_torch.utils.sass_count",
+    "hexl_fpga_tpu_torch.utils.cpp_rates",
     "hexl_fpga_tpu_torch.utils.ablate_kernels",
     "hexl_fpga_tpu_torch.ops.wirepack",
     "hexl_fpga_tpu_torch.integrations.ckks",
@@ -34,6 +36,7 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.ops.rns_behz",
     "hexl_fpga_tpu_torch.ops.rns_behz_cuda",
     "hexl_fpga_tpu_torch.integrations.bfv",
+    "hexl_fpga_tpu_torch.cpp_bridge",
 ]
 
 
@@ -125,14 +128,17 @@ def test_cuda_launch_path_raises_without_cuda():
 
 
 def test_op_constructors_default_to_the_card():
-    """The op-level constructors build for the card unless asked for the
-    CPU, as the reference's build for the default device: without a CUDA
-    device the default raises."""
+    """The op-level constructors, and the converters that carry the
+    reference's device state across (its staged keys, a CKKS `data32`),
+    build for the card unless asked for the CPU, as the reference's build
+    for the default device: without a CUDA device the default raises."""
     import torch
 
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     code = (
+        "import numpy as np\n"
+        "from hexl_fpga_tpu_torch import convert\n"
         "from hexl_fpga_tpu_torch.ops import dyadic_cuda, galois_cuda, ntt_cuda\n"
         "def raises(fn):\n"
         "    try: fn()\n"
@@ -141,9 +147,17 @@ def test_op_constructors_default_to_the_card():
         "assert raises(lambda: ntt_cuda.modulus_tables(1024, 1073750017))\n"
         "assert raises(lambda: dyadic_cuda.runner([17]))\n"
         "assert raises(lambda: galois_cuda.galois_index(1024, 5))\n"
+        "p = np.ones((1, 2, 3, 8), dtype=np.uint32)\n"
+        "d32 = np.ones((2, 2, 16), dtype=np.uint32)\n"
+        "assert raises(lambda: convert.staged_keys_from_pairs(p, p, p, p))\n"
+        "assert raises(lambda: convert.ckks_handle_from_data32(d32, 1, 2.0 ** 40))\n"
         "assert ntt_cuda.modulus_tables(1024, 1073750017, device='cpu').tab.is_cpu\n"
         "assert dyadic_cuda.runner([17], device='cpu').meta.is_cpu\n"
         "assert galois_cuda.galois_index(1024, 5, device='cpu').is_cpu\n"
+        "k, kp = convert.staged_keys_from_pairs(p, p, p, p, device='cpu')\n"
+        "assert k.is_cpu and kp.is_cpu and k.shape == (1, 2, 3, 8)\n"
+        "h = convert.ckks_handle_from_data32(d32, 1, 2.0 ** 40, device='cpu')\n"
+        "assert h.data.is_cpu and h.data.shape == (2, 2, 8)\n"
         "print('card')\n"
     )
     res = run_py(code)

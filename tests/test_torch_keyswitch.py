@@ -75,7 +75,7 @@ def test_builds_fed_the_same_staged_operands(vec, ctx, ref_ctx):
     msf4 = ref_ctx.prepare_msf4(vec.modswitch_factors)
     ref_lo, ref_hi = ref_ctx._fn(t_lo, t_hi, klo, khi, plo, phi, r_lo, r_hi, msf4)
 
-    keys, kp = convert.staged_keys_from_pairs(klo, khi, plo, phi)
+    keys, kp = convert.staged_keys_from_pairs(klo, khi, plo, phi, device="cpu")
     msf = convert.msf_from_msf4(msf4)
     out = ctx._build(convert.pair_to_i64(t_lo, t_hi), keys, kp,
                      convert.pair_to_i64(r_lo, r_hi), msf)

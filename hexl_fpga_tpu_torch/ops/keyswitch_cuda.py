@@ -282,16 +282,20 @@ class KeySwitchContext:
             out = w.cond_sub64(w.add64(res_j, delta), q)
         return out.view(comp, B, n).transpose(0, 1)
 
+    def _intt2(self, acc_sp):
+        """The special engine's lazy sums (comp, B, n) -> e (comp*B, n),
+        canonical under q_k: Barrett, INTT2 over both components in one
+        call, + q_k/2."""
+        sp = self.K - 1
+        acc_sp = w.barrett_reduce64(acc_sp, self.qk, self.q_barr[sp])
+        d = ntt_cuda.ntt_inv(acc_sp.view(-1, self.n), self._tabs[sp])
+        return w.add_mod(d, self.qk_half, self.qk)
+
     def _finish(self, engine_acc, res, msf):
         """The schedule from the engines' lazy sums on: special engine first
         (engine K-1 + INTT2), then per decomp modulus its engine and tail.
         engine_acc(j, skip_t_term) -> (comp, B, n); res (B, comp, L, n)."""
-        sp = self.K - 1
-        qk = self.qk
-        acc_sp = w.barrett_reduce64(engine_acc(sp, False), qk, self.q_barr[sp])
-        # INTT2 over both components in one call
-        d = ntt_cuda.ntt_inv(acc_sp.view(-1, self.n), self._tabs[sp])
-        e = w.add_mod(d, self.qk_half, qk)  # (comp*B, n)
+        e = self._intt2(engine_acc(self.K - 1, False))
         sigma = self._sigma(e) if self.plain_modulus is not None else None
 
         out = torch.empty_like(res)

@@ -54,6 +54,7 @@ kernels' oracle on the card.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -68,6 +69,7 @@ from . import _build, nt, twiddles, word64 as w
 # it launches its kernel
 LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "ntt_fwd_mac": 0}
 _launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
+_this_thread = threading.local()  # thread_launches' dict, where one is open
 
 KERNEL_SOURCE = "ntt_kernels.cu"
 KERNEL_DEPS = ("ntt_kernels.cuh",)
@@ -77,6 +79,19 @@ def reset_launch_counts() -> None:
     with _launches_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+@contextlib.contextmanager
+def thread_launches():
+    """Count the launches of this thread alone, by kernel, into the dict it
+    yields (a rank of `parallel.mesh.run_ranks` is a thread); LAUNCHES
+    counts them as well."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _this_thread.counts = counts
+    try:
+        yield counts
+    finally:
+        _this_thread.counts = None
 
 
 # ---------------------------------------------------------------------------
@@ -168,10 +183,11 @@ def _table_rows(n: int, *arrays):
 
 
 def caller_fwd_tables(n: int, q: int, root_of_unity_powers, precon,
-                      device="cpu") -> ModulusTables:
+                      device="cuda") -> ModulusTables:
     """Forward-only tables from a caller's own arrays, used as given:
     `root_of_unity_powers` in bit-reversed order and their precons
-    floor(w << 64 / q) (the `_NTT` arguments).  Cached by content."""
+    floor(w << 64 / q) (the `_NTT` arguments), on `device` (the card unless
+    the caller asks for the CPU).  Cached by content."""
     n, q, device = int(n), int(q), str(torch.device(device))
     _check_n_q(n, q)
     fwd, fp = _table_rows(n, root_of_unity_powers, precon)
@@ -189,10 +205,11 @@ def caller_fwd_tables(n: int, q: int, root_of_unity_powers, precon,
 
 
 def caller_inv_tables(n: int, q: int, inv_root_of_unity_powers, precon,
-                      inv_n: int, inv_n_w: int, device="cpu") -> ModulusTables:
+                      inv_n: int, inv_n_w: int, device="cuda") -> ModulusTables:
     """Inverse-only tables from a caller's own arrays, used as given: the
     scan-order inverse root powers with the leading 1, their precons, n^-1
-    and n^-1 times the last twiddle (the `_INTT` arguments)."""
+    and n^-1 times the last twiddle (the `_INTT` arguments), on `device`
+    (the card unless the caller asks for the CPU)."""
     n, q, device = int(n), int(q), str(torch.device(device))
     inv_n, inv_n_w = int(inv_n), int(inv_n_w)
     _check_n_q(n, q)
@@ -434,6 +451,9 @@ def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
     with _launches_lock:
         LAUNCHES[name] += 1
+    mine = getattr(_this_thread, "counts", None)
+    if mine is not None:
+        mine[name] += 1
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,10 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.ops.rns_behz_cuda",
     "hexl_fpga_tpu_torch.integrations.bfv",
     "hexl_fpga_tpu_torch.cpp_bridge",
+    "hexl_fpga_tpu_torch.parallel.mesh",
+    "hexl_fpga_tpu_torch.parallel.projection",
+    "hexl_fpga_tpu_torch.parallel.sharded",
+    "hexl_fpga_tpu_torch.utils.probe_gloo",
 ]
 
 
@@ -128,10 +132,11 @@ def test_cuda_launch_path_raises_without_cuda():
 
 
 def test_op_constructors_default_to_the_card():
-    """The op-level constructors, and the converters that carry the
-    reference's device state across (its staged keys, a CKKS `data32`),
-    build for the card unless asked for the CPU, as the reference's build
-    for the default device: without a CUDA device the default raises."""
+    """The op-level constructors (the caller-table ones too), the mesh of
+    the multi-device layer, and the converters that carry the reference's
+    device state across (its staged keys, a CKKS `data32`), build for the
+    card unless asked for the CPU, as the reference's build for the default
+    device: without a CUDA device the default raises."""
     import torch
 
     if torch.cuda.is_available():
@@ -147,6 +152,17 @@ def test_op_constructors_default_to_the_card():
         "assert raises(lambda: ntt_cuda.modulus_tables(1024, 1073750017))\n"
         "assert raises(lambda: dyadic_cuda.runner([17]))\n"
         "assert raises(lambda: galois_cuda.galois_index(1024, 5))\n"
+        "t = ntt_cuda.modulus_tables(1024, 1073750017, device='cpu')\n"
+        "fwd = (1024, t.q, t.tab[0].numpy(), t.tab[1].numpy())\n"
+        "inv = (1024, t.q, t.tab[2].numpy(), t.tab[3].numpy(), t.inv_n, t.inv_n_w)\n"
+        "assert raises(lambda: ntt_cuda.caller_fwd_tables(*fwd))\n"
+        "assert raises(lambda: ntt_cuda.caller_inv_tables(*inv))\n"
+        "assert ntt_cuda.caller_fwd_tables(*fwd, device='cpu').tab.is_cpu\n"
+        "assert ntt_cuda.caller_inv_tables(*inv, device='cpu').tab.is_cpu\n"
+        "import torch.distributed as dist\n"
+        "from hexl_fpga_tpu_torch.parallel import mesh\n"
+        "assert raises(lambda: mesh.Mesh(dist.HashStore(), 0, {'mp': 1}))\n"
+        "assert mesh.default_device(0, 'cpu').type == 'cpu'\n"
         "p = np.ones((1, 2, 3, 8), dtype=np.uint32)\n"
         "d32 = np.ones((2, 2, 16), dtype=np.uint32)\n"
         "assert raises(lambda: convert.staged_keys_from_pairs(p, p, p, p))\n"

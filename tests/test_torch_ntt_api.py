@@ -57,13 +57,14 @@ def test_caller_tables_other_root_match_xla_tier_and_golden(bits):
     t = twiddles.ntt_tables(N, q, other_root(N, q))
     rng = np.random.default_rng(bits)
     a = rng.integers(0, q, size=(3, N), dtype=np.uint64)
-    ft = ntt_cuda.caller_fwd_tables(N, q, t.fwd, t.fwd_precon)
+    ft = ntt_cuda.caller_fwd_tables(N, q, t.fwd, t.fwd_precon, device="cpu")
     f = run_port(ntt_cuda.ntt_fwd, a, ft)
     np.testing.assert_array_equal(f, golden.fwd_ntt(a, q, t))
     assert not np.array_equal(f, golden.fwd_ntt(a, q))
     np.testing.assert_array_equal(
         f, ntt_jax.fwd_ntt_with_tables(a, q, t.fwd, t.fwd_precon))
-    it = ntt_cuda.caller_inv_tables(N, q, t.inv, t.inv_precon, t.inv_n, t.inv_n_w)
+    it = ntt_cuda.caller_inv_tables(N, q, t.inv, t.inv_precon, t.inv_n, t.inv_n_w,
+                                   device="cpu")
     i = run_port(ntt_cuda.ntt_inv, a, it)
     np.testing.assert_array_equal(i, golden.inv_ntt(a, q, t))
     np.testing.assert_array_equal(
@@ -74,23 +75,27 @@ def test_caller_tables_other_root_match_xla_tier_and_golden(bits):
 def test_caller_tables_are_cached_by_content_and_one_directional():
     q = int(nt.generate_primes(1, 30, 64)[0])
     t = twiddles.ntt_tables(64, q)
-    ft = ntt_cuda.caller_fwd_tables(64, q, t.fwd, t.fwd_precon)
+    cpu = {"device": "cpu"}
+    ft = ntt_cuda.caller_fwd_tables(64, q, t.fwd, t.fwd_precon, **cpu)
     # a second batch under equal tables (other array objects) uploads nothing
-    assert ntt_cuda.caller_fwd_tables(64, q, t.fwd.copy(), list(t.fwd_precon)) is ft
-    it = ntt_cuda.caller_inv_tables(64, q, t.inv, t.inv_precon, t.inv_n, t.inv_n_w)
+    assert ntt_cuda.caller_fwd_tables(64, q, t.fwd.copy(), list(t.fwd_precon),
+                                      **cpu) is ft
+    it = ntt_cuda.caller_inv_tables(64, q, t.inv, t.inv_precon, t.inv_n, t.inv_n_w,
+                                    **cpu)
     assert ntt_cuda.caller_inv_tables(
-        64, q, t.inv.copy(), t.inv_precon, t.inv_n, t.inv_n_w) is it
+        64, q, t.inv.copy(), t.inv_precon, t.inv_n, t.inv_n_w, **cpu) is it
     other = twiddles.ntt_tables(64, q, other_root(64, q, 3))
-    assert ntt_cuda.caller_fwd_tables(64, q, other.fwd, other.fwd_precon) is not ft
+    assert ntt_cuda.caller_fwd_tables(64, q, other.fwd, other.fwd_precon,
+                                      **cpu) is not ft
     x = torch.zeros(1, 64, dtype=torch.int64)
     with pytest.raises(ValueError, match="no inverse"):
         ntt_cuda.ntt_inv(x, ft)
     with pytest.raises(ValueError, match="no forward"):
         ntt_cuda.ntt_fwd(x, it)
     with pytest.raises(ValueError, match="expected 64"):
-        ntt_cuda.caller_fwd_tables(64, q, t.fwd[:32], t.fwd_precon)
+        ntt_cuda.caller_fwd_tables(64, q, t.fwd[:32], t.fwd_precon, **cpu)
     with pytest.raises(ValueError, match="below q"):
-        ntt_cuda.caller_inv_tables(64, q, t.inv, t.inv_precon, q, t.inv_n_w)
+        ntt_cuda.caller_inv_tables(64, q, t.inv, t.inv_precon, q, t.inv_n_w, **cpu)
 
 
 WIDE = 32768  # a row of it takes 2 or 4 blocks, never one

@@ -129,7 +129,25 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      collectives' calls and ms, bytes handed to gloo and staged through
      host memory, comm_report.  After the profiler, the scaling model's
      block (`parallel/projection.py`) from this run's single-card numbers;
-     no scaling is measured (one card).
+     no scaling is measured (one card).  Also the glue alone, one rank
+     then four: 200 small torch ops a rank, then 50 each read back,
+ 14. drives `process_ranks`: sharded_path's runs again with each rank a
+     process of its own (`spawn_ranks`: `python -m` per rank, torch's
+     launcher environment, `Mesh.from_env`, a TCPStore held here), spawned
+     once for the two-rank runs and once for the four-rank ones, every run
+     on meshes of its own prefix, all on cuda:0; every output equal to the
+     threaded run's and to its oracle, the launches (each process counts
+     its own) to sharded_path's, no child process left after a spawn;
+     `ms_ranks_in_processes` beside `ms_ranks_on_one_card` (one card, gloo
+     through host memory: not scaling numbers),
+ 15. drives `examples_path`: every script of examples_torch/ (the seven
+     examples and the C++ API's) through its main() on the card, with the
+     earlier phases' runtime knobs out of the environment (the multichip
+     example spawns four ranks on the card); its printed checks, seconds
+     and launches by kernel; before them ntt_fwd and ntt_inv at n = 256 ..
+     4096, ntt_fwd_tail at 1024 and 4096 and dyadic_mul at 1024 and 4096,
+     at the examples' rows, against their plain versions, and the split
+     (C, registers, blocks per SM, waves) at n = 1024 and 4096.
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -138,20 +156,24 @@ of it passed.
 
 `main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
 a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 11, the four small
-vectors in phase 12, n = 1024 for phase 13) with the kernels' plain versions (no nvcc build, no
+vectors in phase 12, n = 1024 for phases 13 and 14, the examples with
+device "cpu") with the kernels' plain versions (no nvcc build, no
 kernel comparison, no timings; the C++ runtime built by g++): a check of the
 script, not of the card.  Each phase prints its seconds (`s`).
 """
 
 from __future__ import annotations
 
+import contextlib
+import faulthandler
 import functools
+import importlib
+import io
 import json
 import math
 import os
 import subprocess
 import sys
-import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -169,7 +191,7 @@ from hexl_fpga_tpu_torch.ops import (
     dyadic_cuda, galois_cuda, golden, keyswitch_cuda, nt, ntt_cuda, rns_behz,
     rns_behz_cuda, twiddles, wirepack, word64 as w,
 )
-from hexl_fpga_tpu_torch.parallel import mesh as mesh_mod, projection, sharded
+from hexl_fpga_tpu_torch.parallel import mesh as mesh_mod, projection, rank_ops, sharded
 from hexl_fpga_tpu_torch.parallel.mesh import run_ranks
 from hexl_fpga_tpu_torch.runtime import scheduler
 from hexl_fpga_tpu_torch.utils import cuda_timing, keycache, vectors
@@ -385,9 +407,9 @@ def profile_kernels(reps=20):
         entry["host_ms"] = cuda_timing.host_ms(kern, reps)
     for entry, name, kern in PROFILE_LATER:
         for attempt in range(1, PROFILE_ATTEMPTS + 1):
-            reset_all_counts()
+            rank_ops.reset_counts()
             ms, seen = cuda_timing.device_ms(kern, reps, {f"{name}_kernel"})
-            assert launches_now() == {name: reps + 1}, (name, launches_now())
+            assert rank_ops.counts() == {name: reps + 1}, (name, rank_ops.counts())
             if seen == reps:
                 break
         assert seen == reps and ms is not None, (name, seen, attempt)
@@ -1325,22 +1347,11 @@ CKKS_MANY_STEPS = [0, 1, 2, 3]
 NOISE = 1e-2  # decryptions, on values of order 1 (the reference's tests)
 
 
-def launches_now():
-    """Every kernel launch counter, nonzero ones only."""
-    counts = {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES}
-    return {k: v for k, v in counts.items() if v}
-
-
-def reset_all_counts():
-    ntt_cuda.reset_launch_counts()
-    dyadic_cuda.reset_launch_counts()
-
-
 def launches_of(fn):
     """The launches of one call of fn, by kernel."""
-    reset_all_counts()
+    rank_ops.reset_counts()
     fn()
-    return launches_now()
+    return rank_ops.counts()
 
 
 def check_scheme_shapes(moduli, n, device):
@@ -1435,9 +1446,9 @@ def ckks_path(device, rehearse):
         return h3, steps
 
     chain()
-    reset_all_counts()
+    rank_ops.reset_counts()
     h3, steps = chain()
-    launches = launches_now()
+    launches = rank_ops.counts()
     got = {k: ev.to_host(v) for k, v in steps.items()}
 
     # the same evaluation by the host context, through the API
@@ -1562,9 +1573,9 @@ def bgv_path(vec, device, rehearse):
         return s
 
     chain()
-    reset_all_counts()
+    rank_ops.reset_counts()
     steps = chain()
-    launches = launches_now()
+    launches = rank_ops.counts()
     got = {k: ev.to_host(v) for k, v in steps.items()}
 
     start_runtime(rehearse)
@@ -1732,9 +1743,9 @@ def bfv_path(vec, device, rehearse):
         return s
 
     chain()
-    reset_all_counts()
+    rank_ops.reset_counts()
     steps = chain()
-    launches = launches_now()
+    launches = rank_ops.counts()
     rotate_launches = launches_of(lambda: ev.rotate(ev.stage(cts[0]), 1))
     if not rehearse:
         want = dict(behz_launches(BEHZ_K))
@@ -1815,9 +1826,9 @@ def idle_modulus_vector(device, rehearse):
     args = (v.input[None], v.t_target_iter_ptr[None], v.key_vectors,
             v.modswitch_factors)
     ctx.run_batch(*args)
-    reset_all_counts()
+    rank_ops.reset_counts()
     got = ctx.run_batch(*args)
-    launches = launches_now()
+    launches = rank_ops.counts()
     np.testing.assert_array_equal(got[0], v.expected_output)
     return {"vector": name, "ops_checked_vs_expected_output": 1,
             "launches": launches}
@@ -1948,10 +1959,10 @@ def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
         times the served batches, or times `bodies`), served batches and key
         uploads, asserted; returns fn's value."""
         rt.backend_stats(clear=True)
-        reset_all_counts()
+        rank_ops.reset_counts()
         keycache.UPLOADS["key_sets"] = 0
         value = fn()
-        launches, stats = launches_now(), rt.backend_stats(clear=True)
+        launches, stats = rank_ops.counts(), rt.backend_stats(clear=True)
         assert stats["declines"] == [] and stats["errors"] == [], stats
         batches = stats["batches"].get(abi, {}).get(op, 0)
         assert stats["batches"] == {abi: {op: batches}}, stats
@@ -2094,69 +2105,24 @@ def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
 # element 5^3 mod 2n (the reference's dryrun step 6/6)
 SHARDED_N, SHARDED_BITS, DP_BATCH, SP_BATCH = 16384, 52, 256, 32
 SHARDED_GALOIS_EXP = 3
-BARRIER_TIMEOUT_S = 600
+PSUM_REPS = 20
+TORCH_OPS = 200  # about a KeySwitch body's device ops (PERF.md §5)
+SYNCED_OPS = 50
+SPAWN_TIMEOUT_S = 600
+
+# sharded_path's runs, each a group of ops on one mesh: axes, maker and
+# spec (parallel/rank_ops.py), the threaded outputs, and per op its record
+# name, the launches it must make and the check of its per-rank outputs
+# against the op's oracle; process_ranks runs them again in processes
+SHARDED_RUNS = []
 
 
-def rank_ops(axes, device, make):
-    """make(mesh) -> {name: op} on every rank of a mesh with `axes` (ranks
-    as threads, each with its own gloo groups, all on `device`).  Every op
-    runs once to stage tables and keys, then once counted, in order: between
-    two barriers rank 0 sets the launch counters to 0; each rank counts its
-    own launches, collectives and milliseconds of the call; rank 0 reads the
-    counters once every rank is done.  Returns {name: (per-rank outputs,
-    summary)}; the groups are shut down and the threads joined."""
-    size = math.prod(axes.values())
-    barrier = threading.Barrier(size, timeout=BARRIER_TIMEOUT_S)
-
-    def body(m):
-        try:
-            ops = make(m)
-            for op in ops.values():
-                op()
-            done = {}
-            for name, op in ops.items():
-                barrier.wait()
-                if m.rank == 0:
-                    reset_all_counts()
-                m.stats.update(calls={}, seconds=0.0, wire_bytes=0, host_staged_bytes=0)
-                barrier.wait()
-                with ntt_cuda.thread_launches() as mine:
-                    t0 = time.perf_counter()
-                    out = op()
-                    if m.device.type == "cuda":
-                        torch.cuda.synchronize(m.device)
-                    ms = (time.perf_counter() - t0) * 1e3
-                barrier.wait()
-                done[name] = (out, {
-                    "ms": ms, "launches": {k: v for k, v in mine.items() if v},
-                    "stats": json.loads(json.dumps(m.stats)),
-                    "total": launches_now() if m.rank == 0 else None})
-            return done
-        except BaseException:
-            barrier.abort()
-            raise
-
-    per_rank = run_ranks(body, axes, device=device)
-    result = {}
-    for name in per_rank[0]:
-        outs = [r[name][0] for r in per_rank]
-        info = [r[name][1] for r in per_rank]
-        summed = {}
-        for i in info:
-            for k, v in i["launches"].items():
-                summed[k] = summed.get(k, 0) + v
-        assert summed == info[0]["total"], (name, summed, info[0]["total"])
-        result[name] = (outs, {
-            "mesh": axes,
-            "ms_ranks_on_one_card": max(i["ms"] for i in info),
-            "launches": info[0]["total"],
-            "launches_per_rank": [i["launches"] for i in info],
-            "collectives_per_rank": info[0]["stats"]["calls"],
-            "collective_ms_max_rank": max(i["stats"]["seconds"] for i in info) * 1e3,
-            "wire_bytes": sum(i["stats"]["wire_bytes"] for i in info),
-            "host_staged_bytes": sum(i["stats"]["host_staged_bytes"] for i in info),
-        })
-    return result
+def ranks_as_threads(axes, device, maker, spec):
+    """maker's ops on every rank of `axes`, ranks as threads on `device`,
+    each op once counted: ({name: (per-rank outputs, summary)}, info)."""
+    per_rank = run_ranks(functools.partial(rank_ops.counted, maker=maker, spec=spec),
+                         axes, device=device, timeout_s=SPAWN_TIMEOUT_S)
+    return rank_ops.summarize(per_rank), per_rank[0]["info"]
 
 
 def check_sharded_kernels(vec, device, q, n, rehearse):
@@ -2216,61 +2182,62 @@ def sharded_path(vec, device, rehearse):
     the card: the dp NTT, the sp pair at P = 2 and 4, ShardedKeySwitch
     (CKKS at mp 4 and dp 2 x mp 2, BGV, hoisted plain and Galois), each op
     once counted, each against the single-card path (and golden or the
-    vector); then the scaling model's inputs, read after the profiler."""
+    vector); then the scaling model's inputs, read after the profiler.
+    Every run is kept in SHARDED_RUNS for process_ranks."""
     n, bits = (1024, 50) if rehearse else (SHARDED_N, SHARDED_BITS)
     q = int(nt.generate_primes(1, bits, n)[0])
     rng = np.random.default_rng(21)
     out = {"ops": {}, "launches": {}}
     out["kernels_vs_plain_comparisons"] = check_sharded_kernels(vec, device, q, n, rehearse)
     tabs = ntt_cuda.modulus_tables(n, q, device=device)
+    SHARDED_RUNS.clear()
 
-    def record(name, summary, want_launches, **extra):
-        got = {k: v for k, v in summary["launches"].items() if v}
-        if rehearse:  # no timings off the card
-            del summary["ms_ranks_on_one_card"], summary["collective_ms_max_rank"]
-        else:
-            assert got == want_launches, (name, got, want_launches)
-        for k, v in got.items():
-            out["launches"][k] = out["launches"].get(k, 0) + v
-        out["ops"][name] = {**summary, **extra}
+    def group(axes, maker, spec, records, processes=True):
+        """records: {op: (record name, launches, check(outs) -> extra, extra)};
+        processes: process_ranks runs it again"""
+        ops, info = ranks_as_threads(axes, device, maker, spec)
+        for name, (rec, want, check, extra) in records.items():
+            outs, summary = ops[name]
+            record(out, rec, summary, want, rehearse, "ms_ranks_on_one_card",
+                   mesh=axes, **info, **extra, **(check(outs) or {}))
+        if processes:
+            SHARDED_RUNS.append({"axes": axes, "maker": maker, "spec": spec,
+                                 "records": records,
+                                 "outs": {name: ops[name][0] for name in records}})
+
+    def rows_equal(want, axis=0, what=""):
+        def check(outs):
+            np.testing.assert_array_equal(np.concatenate(outs, axis), want, err_msg=what)
+        return check
+
+    def each_equal(want, what):
+        def check(outs):
+            for o in outs:
+                np.testing.assert_array_equal(o, want, err_msg=what)
+        return check
 
     # 1. dp: batch sharding, no collective
     a = rng.integers(0, q, size=(DP_BATCH, n), dtype=np.uint64)
-    x = w.from_u64_np(a, device)
-    rows = DP_BATCH // 4
-    dp = rank_ops({"dp": 4}, device, lambda m: {"batch_sharded_fwd_ntt": functools.partial(
-        sharded.batch_sharded_fwd_ntt(m, "dp", n, q),
-        x[m.rank * rows:(m.rank + 1) * rows])})
-    outs, summary = dp["batch_sharded_fwd_ntt"]
-    want = ntt_cuda.ntt_fwd(x, tabs)
-    assert torch.equal(torch.cat(outs), want), "dp vs single-card ntt_fwd"
+    want = w.to_u64_np(ntt_cuda.ntt_fwd(w.from_u64_np(a, device), tabs))
     sample = [0, DP_BATCH - 1]
-    np.testing.assert_array_equal(w.to_u64_np(want[sample]), golden.fwd_ntt(a[sample], q))
-    record("batch_sharded_fwd_ntt", summary, {"ntt_fwd": 4}, n=n, batch=DP_BATCH)
+    np.testing.assert_array_equal(want[sample], golden.fwd_ntt(a[sample], q))
+    group({"dp": 4}, rank_ops.dp_ntt, {"n": n, "q": q, "x": a}, {
+        "batch_sharded_fwd_ntt": ("batch_sharded_fwd_ntt", {"ntt_fwd": 4},
+                                  rows_equal(want, 0, "dp vs single-card ntt_fwd"),
+                                  {"n": n, "batch": DP_BATCH})})
 
     # 2. sp: the binary-exchange pair, forward against the single card, the
     # round trip, and INTT -> NTT chained on the rank tensors
     a = rng.integers(0, q, size=(SP_BATCH, n), dtype=np.uint64)
-    x = w.from_u64_np(a, device)
-    want_f = ntt_cuda.ntt_fwd(x, tabs)
+    want_f = w.to_u64_np(ntt_cuda.ntt_fwd(w.from_u64_np(a, device), tabs))
     for P in (2, 4):
-        S = n // P
-
-        def make(m, P=P, S=S):
-            p = m.axis_index("sp")
-            fwd, inv = sharded.dist_fwd_ntt(m, "sp", n, q), sharded.dist_inv_ntt(m, "sp", n, q)
-            blk, f_blk = (t[:, p * S:(p + 1) * S].contiguous() for t in (x, want_f))
-            back = inv(f_blk)
-            assert torch.equal(fwd(back), f_blk), "INTT -> NTT chained"
-            return {"dist_fwd_ntt": lambda: fwd(blk), "dist_inv_ntt": lambda: inv(f_blk)}
-
-        ops = rank_ops({"sp": P}, device, make)
-        f_outs, f_sum = ops["dist_fwd_ntt"]
-        i_outs, i_sum = ops["dist_inv_ntt"]
-        assert torch.equal(torch.cat(f_outs, 1), want_f), f"sp={P} forward vs single card"
-        assert torch.equal(torch.cat(i_outs, 1), x), f"sp={P} round trip"
-        record(f"dist_fwd_ntt sp={P}", f_sum, {"ntt_fwd": P}, n=n, batch=SP_BATCH)
-        record(f"dist_inv_ntt sp={P}", i_sum, {"ntt_inv": P}, n=n, batch=SP_BATCH)
+        group({"sp": P}, rank_ops.sp_pair, {"n": n, "q": q, "x": a, "want_f": want_f}, {
+            "dist_fwd_ntt": (f"dist_fwd_ntt sp={P}", {"ntt_fwd": P},
+                             rows_equal(want_f, 1, f"sp={P} forward vs single card"),
+                             {"n": n, "batch": SP_BATCH}),
+            "dist_inv_ntt": (f"dist_inv_ntt sp={P}", {"ntt_inv": P},
+                             rows_equal(a, 1, f"sp={P} round trip"),
+                             {"n": n, "batch": SP_BATCH})})
 
     # 3. ShardedKeySwitch on the vector: mp 4 at batch 1 against its
     # expected output, dp 2 x mp 2 at batch 32 against the single-card body,
@@ -2278,27 +2245,14 @@ def sharded_path(vec, device, rehearse):
     nv, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
     cfg = (nv, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors)
     keyed = (vec.key_vectors, vec.modswitch_factors)
+    ks_spec = {"n": nv, "L": L, "K": K, "moduli": list(vec.moduli),
+               "keys": vec.key_vectors, "msf": vec.modswitch_factors}
 
-    comm = {}  # comm_report of rank 0's ShardedKeySwitch, by its rows a rank
-
-    def ks_make(axes, rs, ts, plain_modulus=None):
-        dpx = "dp" if "dp" in axes else None
-
-        def make(m):
-            ks = sharded.ShardedKeySwitch(m, "mp", dpx, nv, L, K, vec.moduli,
-                                          plain_modulus)
-            B = len(rs) // axes.get("dp", 1)
-            comm[B] = ks.comm_report(B)
-            return {"run": functools.partial(ks.run, rs, ts, *keyed)}
-
-        return make
-
-    outs, summary = rank_ops({"mp": 4}, device, ks_make(
-        {"mp": 4}, vec.input[None], vec.t_target_iter_ptr[None]))["run"]
-    for o in outs:
-        np.testing.assert_array_equal(o[0], vec.expected_output)
-    record("keyswitch mp=4", summary, sharded_ks_launches(L, 4, 1), batch=1,
-           comm_report=comm[1], checked="expected_output")
+    group({"mp": 4}, rank_ops.keyswitch,
+          {**ks_spec, "rs": vec.input[None], "ts": vec.t_target_iter_ptr[None]}, {
+              "run": ("keyswitch mp=4", sharded_ks_launches(L, 4, 1),
+                      each_equal(vec.expected_output[None], "mp 4 vs expected_output"),
+                      {"batch": 1, "checked": "expected_output"})})
 
     ops = make_ops(vec, BATCH, seed=13)
     rs = np.stack([r for r, _ in ops])
@@ -2310,20 +2264,20 @@ def sharded_path(vec, device, rehearse):
     base = w.to_u64_np(single._build(h_t.data, keys, kp, h_c.data, msf)).reshape(BATCH, -1)
     np.testing.assert_array_equal(base[0], vec.expected_output)
     mesh22 = {"dp": 2, "mp": 2}
-    outs, summary = rank_ops(mesh22, device, ks_make(mesh22, rs, ts))["run"]
-    for o in outs:
-        np.testing.assert_array_equal(o, base, err_msg="dp 2 x mp 2 vs single card")
-    record("keyswitch dp=2 x mp=2", summary, sharded_ks_launches(L, 2, 2),
-           batch=BATCH, comm_report=comm[BATCH // 2], checked="single-card _build")
+    group(mesh22, rank_ops.keyswitch, {**ks_spec, "rs": rs, "ts": ts}, {
+        "run": ("keyswitch dp=2 x mp=2", sharded_ks_launches(L, 2, 2),
+                each_equal(base, "dp 2 x mp 2 vs single card"),
+                {"batch": BATCH, "checked": "single-card _build"})})
 
     bgv_base = keyswitch_cuda.get_context(
         *cfg, device=device, plain_modulus=PLAIN_MODULUS).run_batch(rs, ts, *keyed)
     assert not np.array_equal(bgv_base, base)
-    outs, summary = rank_ops(mesh22, device, ks_make(mesh22, rs, ts, PLAIN_MODULUS))["run"]
-    for o in outs:
-        np.testing.assert_array_equal(o, bgv_base, err_msg="BGV vs single card")
-    record("keyswitch BGV dp=2 x mp=2", summary, sharded_ks_launches(L, 2, 2),
-           batch=BATCH, plain_modulus=PLAIN_MODULUS, checked="single-card BGV context")
+    group(mesh22, rank_ops.keyswitch,
+          {**ks_spec, "rs": rs, "ts": ts, "plain_modulus": PLAIN_MODULUS}, {
+              "run": ("keyswitch BGV dp=2 x mp=2", sharded_ks_launches(L, 2, 2),
+                      each_equal(bgv_base, "BGV vs single card"),
+                      {"batch": BATCH, "plain_modulus": PLAIN_MODULUS,
+                       "checked": "single-card BGV context"})})
 
     # 4. hoisting at mp 2: the decomposition once, the plain and the Galois
     # apply against the single-card run_hoisted
@@ -2332,52 +2286,225 @@ def sharded_path(vec, device, rehearse):
     want_plain = single.run_hoisted(dec1, h_c, *keyed).to_host()
     want_g = single.run_hoisted(dec1, h_c, *keyed, galois=g).to_host()
     np.testing.assert_array_equal(want_plain, base)
+    group({"mp": 2}, rank_ops.hoisted, {**ks_spec, "rs": rs, "ts": ts, "galois": g}, {
+        "hoist": ("hoist mp=2", {"ntt_inv": 2 * L, "ntt_fwd": L + 1},
+                  lambda outs: {"planes_per_rank": outs}, {"batch": BATCH}),
+        "run_hoisted": ("run_hoisted mp=2", {"ntt_inv": 1, "ntt_fwd_tail": L},
+                        each_equal(want_plain, "run_hoisted vs single card"),
+                        {"batch": BATCH, "checked": "single-card run_hoisted"}),
+        "run_hoisted galois": ("run_hoisted galois mp=2", {"ntt_inv": 1, "ntt_fwd_tail": L},
+                               each_equal(want_g, "run_hoisted galois vs single card"),
+                               {"batch": BATCH, "galois": g,
+                                "checked": "single-card run_hoisted(galois)"})})
 
-    def hoist_make(m):
-        ks = sharded.ShardedKeySwitch(m, "mp", None, nv, L, K, vec.moduli)
-        comm[BATCH] = ks.comm_report(BATCH)
-        state = {}
+    # 5. the glue alone (no kernel of ours, no collective), one rank and
+    # four: TORCH_OPS small torch ops a rank, then SYNCED_OPS each followed
+    # by a read of one value to the host
+    for P in (1, 4):
+        for ops_per_rank, sync in ((TORCH_OPS, False), (SYNCED_OPS, True)):
+            what = f"{ops_per_rank} torch ops{' each read back' if sync else ''}"
+            group({"mp": P}, rank_ops.torch_ops,
+                  {"rows": 2, "n": n, "ops": ops_per_rank, "sync": sync}, {
+                      "torch_ops": (f"{what} a rank mp={P}", {}, lambda outs: None,
+                                    {"ops_per_rank": ops_per_rank, "read_back": sync})},
+                  processes=P > 1)
 
-        def hoist():
-            state["dec"] = ks.hoist(ts)
-            return state["dec"].data.shape
-
-        return {"hoist": hoist,
-                "run_hoisted": lambda: ks.run_hoisted(state["dec"], rs, *keyed),
-                "run_hoisted galois": lambda: ks.run_hoisted(state["dec"], rs, *keyed,
-                                                             galois=g)}
-
-    ops = rank_ops({"mp": 2}, device, hoist_make)
-    for name, want in (("run_hoisted", want_plain), ("run_hoisted galois", want_g)):
-        for o in ops[name][0]:
-            np.testing.assert_array_equal(o, want, err_msg=f"{name} vs single card")
-    record("hoist mp=2", ops["hoist"][1], {"ntt_inv": 2 * L, "ntt_fwd": L + 1},
-           batch=BATCH, planes_per_rank=[list(s) for s in ops["hoist"][0]])
-    record("run_hoisted mp=2", ops["run_hoisted"][1],
-           {"ntt_inv": 1, "ntt_fwd_tail": L}, batch=BATCH,
-           comm_report=comm[BATCH], checked="single-card run_hoisted")
-    record("run_hoisted galois mp=2", ops["run_hoisted galois"][1],
-           {"ntt_inv": 1, "ntt_fwd_tail": L}, batch=BATCH, galois=g,
-           checked="single-card run_hoisted(galois)")
-
-    # 5. one collective's own cost: a psum of one value over mp 4, 20 times
-    def psum_ms(m, reps=20):
-        one = torch.zeros(1, dtype=torch.int64, device=m.device)
-        m.psum(one, "mp")
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            m.psum(one, "mp")
-        return (time.perf_counter() - t0) * 1e3 / reps
-
-    small = max(run_ranks(psum_ms, {"mp": 4}, device=device))
+    # 6. one collective's own cost: PSUM_REPS psums of one value over mp 4
+    group({"mp": 4}, rank_ops.psum_of_one, {"axis": "mp", "reps": PSUM_REPS}, {
+        "psum": (f"psum of one value x{PSUM_REPS} mp=4", {}, lambda outs: None,
+                 {"reps": PSUM_REPS})})
     if not rehearse:
-        out["psum_of_one_value_ms_mp4"] = small
+        small = out["ops"][f"psum of one value x{PSUM_REPS} mp=4"]["ms_ranks_on_one_card"]
+        out["psum_of_one_value_ms_mp4"] = small / PSUM_REPS
         PROJECTION_LATER.update(
             body=lambda: single._build(h_t.data, keys, kp, h_c.data, msf),
-            collective_ms=small)
+            collective_ms=small / PSUM_REPS)
     out.update(n=n, modulus_bits=bits, vector=vec.config_name, batch=BATCH,
                ranks_on_one_card=True, collectives="gloo",
                gloo_takes_cuda=sorted(mesh_mod.GLOO_TAKES_CUDA))
+    return out
+
+
+def record(out, name, summary, want_launches, rehearse, ms_key, **extra):
+    """One op's summary into out["ops"] (its `ms` named ms_key) and its
+    launches into out["launches"]; on the card the launches must be
+    want_launches (the plain versions off the card count none)."""
+    got = {k: v for k, v in summary["launches"].items() if v}
+    summary = dict(summary)
+    summary[ms_key] = summary.pop("ms")
+    if rehearse:  # no timings off the card
+        del summary[ms_key], summary["ms_per_rank"], summary["collective_ms_max_rank"]
+    else:
+        assert got == want_launches, (name, got, want_launches)
+    for k, v in got.items():
+        out["launches"][k] = out["launches"].get(k, 0) + v
+    out["ops"][name] = {**summary, **extra}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the same runs with the ranks as processes of their own
+# ---------------------------------------------------------------------------
+
+
+def child_pids() -> set:
+    """The live children of this process (Linux /proc)."""
+    kids = set()
+    for tid in os.listdir(f"/proc/{os.getpid()}/task"):
+        with open(f"/proc/{os.getpid()}/task/{tid}/children") as f:
+            kids.update(int(p) for p in f.read().split())
+    return kids
+
+
+def process_ranks(rehearse, threaded):
+    """sharded_path's runs again with the ranks as processes of their own
+    (`spawn_ranks`: python -m per rank, `Mesh.from_env`, one TCPStore),
+    spawned once per world size, every group of that size in one spawn on
+    meshes of its own prefix; ranks on the card take cuda:(LOCAL_RANK %
+    cards), here all cuda:0.  Every output equal to the threaded run's and
+    to the op's oracle, the launches (summed over the ranks' processes) to
+    sharded_path's, and no child left once a spawn returns.  The ms are one
+    card's, with gloo through host memory: not scaling numbers."""
+    out = {"ops": {}, "launches": {}, "spawns": []}
+    by_world = {}
+    for i, run in enumerate(SHARDED_RUNS):
+        by_world.setdefault(math.prod(run["axes"].values()), []).append((f"g{i}", run))
+    for size, runs in sorted(by_world.items()):
+        before = child_pids()
+        t0 = time.perf_counter()
+        per_rank = mesh_mod.spawn_ranks(
+            rank_ops.counted_groups, {"world": size},
+            device="cpu" if rehearse else None, timeout_s=SPAWN_TIMEOUT_S,
+            args=([(prefix, run["axes"], run["maker"], run["spec"])
+                   for prefix, run in runs],))
+        spawn_s = time.perf_counter() - t0
+        left = child_pids() - before
+        assert not left, f"children left after spawn_ranks: {sorted(left)}"
+        out["spawns"].append({"ranks": size, "groups": len(runs), "s": spawn_s,
+                              "children_left": 0})
+        for gi, (_, run) in enumerate(runs):
+            ops = rank_ops.summarize([r[gi] for r in per_rank])
+            for name, (rec, want, check, extra) in run["records"].items():
+                outs, summary = ops[name]
+                assert summary["processes"] == size, (rec, summary["processes"])
+                more = check(outs) or {}
+                for got, thr in zip(outs, run["outs"][name]):
+                    if isinstance(got, np.ndarray):
+                        np.testing.assert_array_equal(got, thr, err_msg=f"{rec}: "
+                                                      "processes vs threads")
+                    else:
+                        assert got == thr, (rec, got, thr)
+                record(out, rec, summary, want, rehearse, "ms_ranks_in_processes",
+                       mesh=run["axes"], **per_rank[0][gi]["info"], **extra, **more)
+                if not rehearse:
+                    out["ops"][rec]["ms_ranks_on_one_card"] = \
+                        threaded[rec]["ms_ranks_on_one_card"]
+    if not rehearse:
+        small = out["ops"][f"psum of one value x{PSUM_REPS} mp=4"]["ms_ranks_in_processes"]
+        out["psum_of_one_value_ms_mp4"] = small / PSUM_REPS
+    out.update(ranks_in_processes=True, collectives="gloo", launcher="spawn_ranks",
+               not_scaling="one card; gloo through host memory")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the port's examples (examples_torch/), on the card
+# ---------------------------------------------------------------------------
+
+EXAMPLES = ("example_dyadic_multiply", "example_cpp_api", "example_ckks", "example_bgv",
+            "example_bfv", "example_rotate_chain", "example_matvec", "example_multichip")
+# the runtime knobs a user's shell would not have set: the examples run at
+# their defaults, not at the batch sizes the earlier phases left behind
+RUNTIME_ENV_PREFIXES = ("RUN_CHOICE", "BATCH_SIZE_", "NUM_DEV", "FPGA_", "HEXL_TPU_")
+# rows of each kernel at n = 256 .. 4096 that the examples give it (a batch
+# of one ciphertext: 1 to 3 limbs, pairs, the hoisted matvec's stacked
+# rotations, the sp blocks of 1024 / P) and dyadic_mul's (B, M)
+EXAMPLE_ROWS = (1, 2, 3, 4, 6, 8, 16, 32)
+EXAMPLE_DYADIC = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 9), (4, 3))
+EXAMPLE_SPLIT_ROWS = (1, 2, 3, 32)
+
+
+def check_example_shapes(device):
+    """ntt_fwd and ntt_inv at EXAMPLE_ROWS x n = 256 .. 4096, ntt_fwd_tail at
+    n = 1024 and 4096, dyadic_mul at EXAMPLE_DYADIC x n = 1024 and 4096, each
+    against its plain version on the card (45- and 48-bit moduli, the
+    examples'); the split row_split chose at n = 1024 and 4096.  Returns
+    (comparisons, max_abs_err by kernel, split)."""
+    rng = np.random.default_rng(15)
+    err = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "dyadic_mul": 0}
+    made = 0
+
+    def same(name, got, want):
+        nonlocal made
+        err[name] = max(err[name], assert_same(f"{name} {tuple(got.shape)}", got, want))
+        made += 1
+
+    for n in (256, 512, 1024, 4096):
+        q = int(nt.generate_primes(1, 45, n)[0])
+        tabs = ntt_cuda.modulus_tables(n, q, device=device)
+        for rows in EXAMPLE_ROWS:
+            x = rand_u64(rng, (rows, n), 64, device)
+            same("ntt_fwd", ntt_cuda.ntt_fwd(x, tabs), ntt_cuda.ntt_fwd_plain(x, tabs))
+            same("ntt_inv", ntt_cuda.ntt_inv(x, tabs), ntt_cuda.ntt_inv_plain(x, tabs))
+            if n >= 1024:
+                msf = int(rng.integers(1, q))
+                tail = (rand_u64(rng, (rows, n), 53, device), rand_u64(rng, (rows, n), 58, device),
+                        w.from_u64_np(rng.integers(0, q, size=(rows, n), dtype=np.uint64),
+                                      device), tabs, q - 4321, msf, (msf << 64) // q)
+                same("ntt_fwd_tail", ntt_cuda.ntt_fwd_tail(*tail),
+                     ntt_cuda.ntt_fwd_tail_plain(*tail))
+    for n, bits in ((1024, 45), (4096, 48)):
+        primes = nt.generate_primes(9, bits, n)
+        for B, M in EXAMPLE_DYADIC:
+            runner = dyadic_cuda.runner(primes[:M], device)
+            qcol = np.array(primes[:M], dtype=np.uint64).reshape(1, 1, M, 1)
+            x, y = (w.from_u64_np(rng.integers(0, 1 << 63, size=(B, 2, M, n),
+                                               dtype=np.uint64) % qcol, device)
+                    for _ in range(2))
+            same("dyadic_mul", runner.run(x, y),
+                 dyadic_cuda.dyadic_multiply_plain(x, y, runner.meta))
+    split = {name: {n: {rows: split_fields(name, rows, n) for rows in EXAMPLE_SPLIT_ROWS}
+                    for n in (1024, 4096)}
+             for name in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail")}
+    return made, err, split
+
+
+def examples_path(device, rehearse):
+    """Every port example's main() in this process (the multichip example
+    spawns its ranks: one per card, four on one card), with the runtime
+    knobs of the earlier phases out of the environment: its printed checks,
+    seconds and launches by kernel (the multichip ranks' summed over their
+    processes).  Any failed check raises.  Before them, the kernels at the
+    examples' shapes against their plain versions."""
+    out = {"examples": {}, "launches": {}}
+    if not rehearse:
+        made, err, split = check_example_shapes(device)
+        out.update(kernels_vs_plain_comparisons=made, max_abs_err=err, split=split)
+    knobs = {k: v for k, v in os.environ.items() if k.startswith(RUNTIME_ENV_PREFIXES)}
+    for k in knobs:
+        del os.environ[k]
+    config_mod.reset_config()
+    try:
+        for name in EXAMPLES:
+            mod = importlib.import_module(f"examples_torch.{name}")
+            printed = io.StringIO()
+            rank_ops.reset_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                value = mod.main("cpu" if rehearse else None)
+            s = time.perf_counter() - t0
+            launches = rank_ops.counts()
+            if name == "example_multichip":
+                assert not launches, launches  # every launch is a rank's
+                launches = value["launches"]
+            if not rehearse:
+                assert launches, f"{name}: no kernel launched"
+            for k, v in launches.items():
+                out["launches"][k] = out["launches"].get(k, 0) + v
+            out["examples"][name] = {"s": s, "launches": launches,
+                                     "printed": printed.getvalue().splitlines()}
+    finally:
+        os.environ.update(knobs)
+        config_mod.reset_config()
     return out
 
 
@@ -2418,6 +2545,7 @@ def seconds_of(fn) -> float:
 
 
 def main(rehearse: bool = False) -> int:
+    faulthandler.enable()  # a crash in native code prints the Python stacks
     if rehearse:
         device = torch.device("cpu")
         vec = vectors.make_keyswitch_vector(1024, 6, 7, seed=5, modulus_bits=50)
@@ -2460,6 +2588,8 @@ def main(rehearse: bool = False) -> int:
         t0 = time.perf_counter()
         paths[name] = fn(*args)
         paths[name]["s"] = time.perf_counter() - t0
+        print(f"chip_smoke: {name} passed in {paths[name]['s']:.1f} s",
+              file=sys.stderr, flush=True)
 
     run("main_path", main_path, vec, device, rehearse, ops, want, golden_s)
     run("copy_overlap", copy_overlap_path, vec, device, rehearse)
@@ -2482,6 +2612,8 @@ def main(rehearse: bool = False) -> int:
         cpp_build_s)
     # its rank threads are joined and their groups shut down when it returns
     run("sharded_path", sharded_path, vec, device, rehearse)
+    run("process_ranks", process_ranks, rehearse, paths["sharded_path"]["ops"])
+    run("examples_path", examples_path, device, rehearse)
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
     profile_kernels()

@@ -23,6 +23,7 @@ read once at first use:
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass, field
 
@@ -82,3 +83,33 @@ def reset_config() -> None:
     """Re-read the environment (used by tests)."""
     global _config
     _config = None
+
+
+@contextlib.contextmanager
+def run_choice_for(device=None):
+    """RUN_CHOICE for the runtimes (the API's workers, the C++ pool) created
+    inside the block, and what BFV's multiply_rns follows there: 1 (the
+    kernels' plain versions on the CPU) for device "cpu", else 2 (the card;
+    with no CUDA device this raises here).  Yields the device's name.  The
+    environment and the configuration are put back on the way out."""
+    import torch
+
+    cpu = device is not None and torch.device(device).type == "cpu"
+    if cpu:
+        name = "cpu (the kernels' plain versions)"
+    elif not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain versions")
+    else:
+        name = torch.cuda.get_device_name(torch.device(device or "cuda"))
+    keep = os.environ.get("RUN_CHOICE")
+    os.environ["RUN_CHOICE"] = "1" if cpu else "2"
+    reset_config()
+    try:
+        yield name
+    finally:
+        if keep is None:
+            del os.environ["RUN_CHOICE"]
+        else:
+            os.environ["RUN_CHOICE"] = keep
+        reset_config()

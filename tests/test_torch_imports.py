@@ -40,6 +40,7 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.parallel.mesh",
     "hexl_fpga_tpu_torch.parallel.projection",
     "hexl_fpga_tpu_torch.parallel.sharded",
+    "hexl_fpga_tpu_torch.parallel.rank_ops",
     "hexl_fpga_tpu_torch.utils.probe_gloo",
 ]
 

@@ -147,7 +147,33 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      and launches by kernel; before them ntt_fwd and ntt_inv at n = 256 ..
      4096, ntt_fwd_tail at 1024 and 4096 and dyadic_mul at 1024 and 4096,
      at the examples' rows, against their plain versions, and the split
-     (C, registers, blocks per SM, waves) at n = 1024 and 4096.
+     (C, registers, blocks per SM, waves) at n = 1024 and 4096,
+ 16. drives `envelope_path`: the kernels at corner shapes (utils/
+     sanitize_kernels.py: the split cores at C = 1, 2 and 4, the tail at
+     (2, 1024), the MAC's cluster of 2 with and without a skipped limb,
+     dyadic_mul at (1, 2, 3, 1024)) against their plain versions; then
+     utils/fuzz_card.py's quick grid: ntt_fwd / ntt_inv and _NTT / _INTT
+     through the API at n = 1024 .. 32768 under moduli of 20 .. 62 bits
+     (the largest prime below 2^62 included) on the reference's corner rows,
+     random canonical and random 64-bit rows; KeySwitch at the envelope's
+     edges (the smallest width that holds K primes, the K largest primes
+     below 2^52) in both schedules and through api.KeySwitch, fuzz_hw.py's
+     quick configuration and a BGV one; dyadic_mul at 17 .. 60 bits; every
+     configuration against the golden model, every launch of the grid
+     against its plain version on the same inputs; it prints each
+     configuration's line,
+ 17. drives `multi_worker`: NUM_DEV = 2 through the Python API on the one
+     card: the main path's 64 KeySwitch ops, the dyadic path's 64 ops and
+     256 _NTT then 256 _INTT at n = 16384 (batches of 64), every op against
+     the golden model; the batches each worker served (both must serve),
+     each executor's device, api_ops_per_s beside the NUM_DEV = 1 rates,
+     and the launches summed over both workers, equal to the batches times
+     the per-batch counts (no scaling claim: one card).
+
+compute-sanitizer ships with the card's toolkit but refuses its device
+("Device not supported"; a plain CUDA program's cudaMalloc then fails), so
+no phase runs the kernels under it; utils/sanitize_kernels.py is the program
+it would run, and phase 16 runs its shapes.
 
 The launch counters are set to 0 just before each path's counted pass and read
 just after it.  Every phase asserts; nothing is caught.  One JSON object per
@@ -157,9 +183,10 @@ of it passed.
 `main(rehearse=True)` walks the same control flow on the CPU at n = 1024 (and
 a few ops at n = 32768; the vector 1024_5_7_6_2_0 for phase 11, the four small
 vectors in phase 12, n = 1024 for phases 13 and 14, the examples with
-device "cpu") with the kernels' plain versions (no nvcc build, no
-kernel comparison, no timings; the C++ runtime built by g++): a check of the
-script, not of the card.  Each phase prints its seconds (`s`).
+device "cpu", one configuration of each kind at n = 1024 for phase 16)
+with the kernels' plain versions (no nvcc build, no kernel comparison, no
+timings; the C++ runtime built by g++): a check of the script, not of the
+card.  Each phase prints its seconds (`s`).
 """
 
 from __future__ import annotations
@@ -194,7 +221,7 @@ from hexl_fpga_tpu_torch.ops import (
 from hexl_fpga_tpu_torch.parallel import mesh as mesh_mod, projection, rank_ops, sharded
 from hexl_fpga_tpu_torch.parallel.mesh import run_ranks
 from hexl_fpga_tpu_torch.runtime import scheduler
-from hexl_fpga_tpu_torch.utils import cuda_timing, keycache, vectors
+from hexl_fpga_tpu_torch.utils import cuda_timing, fuzz_card, keycache, sanitize_kernels, vectors
 from hexl_fpga_tpu_torch.utils.cuda_timing import event_ms as time_ms, rotating
 from hexl_fpga_tpu_torch.utils.profile_keyswitch import _device_table, wall_ms
 
@@ -2423,6 +2450,23 @@ EXAMPLE_DYADIC = ((1, 1), (1, 2), (1, 3), (1, 4), (1, 9), (4, 3))
 EXAMPLE_SPLIT_ROWS = (1, 2, 3, 32)
 
 
+@contextlib.contextmanager
+def runtime_knobs_cleared():
+    """The runtime knobs the earlier phases left in the environment taken
+    out for the block (a phase sets its own), and put back after it."""
+    knobs = {k: v for k, v in os.environ.items() if k.startswith(RUNTIME_ENV_PREFIXES)}
+    for k in knobs:
+        del os.environ[k]
+    config_mod.reset_config()
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith(RUNTIME_ENV_PREFIXES)]:
+            del os.environ[k]
+        os.environ.update(knobs)
+        config_mod.reset_config()
+
+
 def check_example_shapes(device):
     """ntt_fwd and ntt_inv at EXAMPLE_ROWS x n = 256 .. 4096, ntt_fwd_tail at
     n = 1024 and 4096, dyadic_mul at EXAMPLE_DYADIC x n = 1024 and 4096, each
@@ -2479,11 +2523,7 @@ def examples_path(device, rehearse):
     if not rehearse:
         made, err, split = check_example_shapes(device)
         out.update(kernels_vs_plain_comparisons=made, max_abs_err=err, split=split)
-    knobs = {k: v for k, v in os.environ.items() if k.startswith(RUNTIME_ENV_PREFIXES)}
-    for k in knobs:
-        del os.environ[k]
-    config_mod.reset_config()
-    try:
+    with runtime_knobs_cleared():
         for name in EXAMPLES:
             mod = importlib.import_module(f"examples_torch.{name}")
             printed = io.StringIO()
@@ -2502,9 +2542,140 @@ def examples_path(device, rehearse):
                 out["launches"][k] = out["launches"].get(k, 0) + v
             out["examples"][name] = {"s": s, "launches": launches,
                                      "printed": printed.getvalue().splitlines()}
-    finally:
-        os.environ.update(knobs)
-        config_mod.reset_config()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the envelope the API accepts (utils/fuzz_card.py), on the card
+# ---------------------------------------------------------------------------
+
+ENVELOPE_SEED = 12
+CHECKED_WRAPPERS = ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac", "dyadic_multiply")
+
+
+def envelope_grids(rehearse):
+    """fuzz_card's quick grid; for the rehearsal one configuration of each
+    kind at n = 1024."""
+    if not rehearse:
+        return fuzz_card.grids(quick=True)
+    return (fuzz_card.transform_grid(sizes=(1024,), widths=(20, 62)),
+            [fuzz_card.keyswitch_edge(1024, 1, 2, "smallest", seed=1)],
+            fuzz_card.dyadic_grid(sizes=(1024,), ms=(1,), widths=(17, 60)))
+
+
+def envelope_path(device, rehearse):
+    """First sanitize_kernels' corner shapes (the split cores at C = 1, 2, 4,
+    the tail, the MAC's cluster of 2 with and without a skipped limb, the
+    dyadic product) each against its plain version; then fuzz_card's quick
+    grid: transforms up to 62-bit moduli, KeySwitch at the envelope's edges
+    (both schedules and the API), DyadicMultiply at 17 .. 60 bits, each
+    against the golden model, and every launch of the grid against its
+    plain version on the same inputs.  Prints each configuration's line."""
+    out = {}
+    with runtime_knobs_cleared():
+        if not rehearse:
+            corners = sanitize_kernels.check(device)
+            assert all(v == "equal" for v in corners.values()), corners
+            out["corner_shapes_vs_plain"] = corners
+        printed = []
+        summary = fuzz_card.run(device, *envelope_grids(rehearse), seed=ENVELOPE_SEED,
+                                echo=printed.append)
+    assert not summary.failures, summary.failures
+    if not rehearse:
+        assert all(summary.kernels_vs_plain.get(k) for k in CHECKED_WRAPPERS), \
+            summary.kernels_vs_plain
+    out.update(
+        configs=summary.configs, comparisons_vs_golden=summary.comparisons,
+        by_kind=summary.by_kind, kernels_vs_plain_comparisons=summary.kernels_vs_plain,
+        edges=summary.edges, fuzz_s=summary.s, launches=summary.launches,
+        printed=printed)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: two workers (NUM_DEV = 2) through the Python API on the one card
+# ---------------------------------------------------------------------------
+
+MULTI_WORKERS = 2
+MULTI_NTT_OPS = 256
+MULTI_NTT_BATCH = 64
+
+
+def multi_worker_path(vec, device, rehearse, ops, want, single_rates):
+    """The main path's 64 KeySwitch ops (batches of 32), the dyadic path's 64
+    ops (batches of 32) and 256 _NTT then 256 _INTT at n = 16384 (batches of
+    64) through the API with NUM_DEV = 2: one executor a worker, each on
+    cuda:(i % cards), so both on the one card.  A first pass stages, the
+    second is counted; every op against the golden model (the dyadic path's
+    oracle; the round trip).  Prints the batches each worker served, each
+    executor's device, api_ops_per_s beside the NUM_DEV = 1 rates, and
+    launches summed over both workers, asserted equal to the batches times
+    the per-batch counts.  No scaling claim: the workers share one card."""
+    L = vec.decomp_modulus_size
+    n_dy, moduli, op1, op2, dy_want, _ = dyadic_data(rehearse)
+    n, bits, count, batch = ((1024, 52, 64, 16) if rehearse
+                             else (NTT_CELLS[0][0], NTT_CELLS[0][1], MULTI_NTT_OPS,
+                                   MULTI_NTT_BATCH))
+    q, t, src, want_fwd, _ = ntt_data(n, bits, 64 if rehearse else NTT_CELLS[0][2])
+    src, want_fwd = src[:count], want_fwd[:count]
+    fwd = lambda b: hexl._NTT(b, t.fwd, t.fwd_precon, q, n)
+    inv = lambda b: hexl._INTT(b, t.inv, t.inv_precon, q, t.inv_n, t.inv_n_w, n)
+
+    def everything():
+        ks, ks_s = drive_api(vec, ops)
+        dy, dy_s = drive_dyadic(op1, op2, n_dy, moduli)
+        f, f_s = drive_transform(src, fwd, hexl._set_worksize_NTT, hexl._NTTCompleted)
+        i, i_s = drive_transform(f, inv, hexl._set_worksize_INTT, hexl._INTTCompleted)
+        return (ks, dy, f, i), (ks_s, dy_s, f_s, i_s)
+
+    with runtime_knobs_cleared():
+        start_runtime(rehearse, NUM_DEV=MULTI_WORKERS, BATCH_SIZE_KEYSWITCH=BATCH,
+                      BATCH_SIZE_DYADIC_MULTIPLY=BATCH, BATCH_SIZE_NTT=batch,
+                      BATCH_SIZE_INTT=batch)
+        pool = scheduler.pool()
+        try:
+            first, _ = everything()  # stages keys, tables and constants
+            for d in pool.devices:
+                d.served.clear()
+            ntt_cuda.reset_launch_counts()
+            dyadic_cuda.reset_launch_counts()
+            counted, secs = everything()
+            launches = {k: v for k, v in {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES}.items()
+                        if v}
+            served = [dict(d.served) for d in pool.devices]
+            devices = [str(d.executor.device) for d in pool.devices]
+        finally:
+            hexl.release_FPGA_resources()
+
+    for results in (first, counted):
+        ks, dy, f, i = results
+        for k, exp in enumerate(want):
+            np.testing.assert_array_equal(ks[k], exp, err_msg=f"KeySwitch op {k}")
+        for k in range(WORKSIZE):
+            np.testing.assert_array_equal(dy[k], dy_want[k].reshape(-1),
+                                          err_msg=f"DyadicMultiply op {k}")
+        np.testing.assert_array_equal(np.stack(f), want_fwd)
+        np.testing.assert_array_equal(np.stack(i), src)  # the round trip
+    assert len(served) == MULTI_WORKERS and all(served), served  # both workers served
+    batches = {op: sum(s.get(op, 0) for s in served) for op in
+               (scheduler.KEYSWITCH, scheduler.DYADIC_MULTIPLY, scheduler.NTT, scheduler.INTT)}
+    ks_b = batches[scheduler.KEYSWITCH]
+    expected = {"ntt_fwd": (L + 1) * ks_b + batches[scheduler.NTT],
+                "ntt_inv": (L + 1) * ks_b + batches[scheduler.INTT],
+                "ntt_fwd_tail": L * ks_b, "dyadic_mul": batches[scheduler.DYADIC_MULTIPLY]}
+    assert launches == ({} if rehearse else expected), (launches, expected)
+
+    out = {"workers": MULTI_WORKERS, "executor_devices": devices,
+           "batches_served_by_worker": served, "batches": batches,
+           "ops": {"keyswitch": len(ops), "dyadic": WORKSIZE, "ntt": count, "intt": count},
+           "batch": {"keyswitch": BATCH, "dyadic": BATCH, "ntt": batch},
+           "ops_checked_vs_golden": 2 * (len(ops) + WORKSIZE + 2 * count),
+           "launches": launches, "not_scaling": "two workers share one card"}
+    if not rehearse:
+        ks_s, dy_s, f_s, i_s = secs
+        out["api_ops_per_s"] = {"keyswitch": len(ops) / ks_s, "dyadic": WORKSIZE / dy_s,
+                                "ntt": count / f_s, "intt": count / i_s}
+        out["api_ops_per_s_num_dev_1"] = single_rates
     return out
 
 
@@ -2614,6 +2785,8 @@ def main(rehearse: bool = False) -> int:
     run("sharded_path", sharded_path, vec, device, rehearse)
     run("process_ranks", process_ranks, rehearse, paths["sharded_path"]["ops"])
     run("examples_path", examples_path, device, rehearse)
+    run("envelope_path", envelope_path, device, rehearse)
+    run("multi_worker", multi_worker_path, vec, device, rehearse, ops, want, python_rates)
     if at_path_shape:
         paths["ntt_path"]["row_kernels_at_path_shape"] = at_path_shape
     profile_kernels()

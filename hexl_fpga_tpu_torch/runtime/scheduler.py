@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -61,6 +61,10 @@ class Buffer:
         self._not_full = threading.Condition(self._lock)
         self._not_empty = threading.Condition(self._lock)
         self._closed = False
+        # ops queued per type since reset_count(type), counted under the lock
+        # as they are queued: a worker (which reads it under the lock) never
+        # sees an op in the queue that the count lacks
+        self._queued: Dict[str, int] = {}
 
     def push(self, item: WorkItem) -> None:
         with self._not_full:
@@ -69,7 +73,17 @@ class Buffer:
             if self._closed:
                 raise RuntimeError("runtime released")
             self._q.append(item)
+            self._queued[item.op_type] = self._queued.get(item.op_type, 0) + 1
             self._not_empty.notify_all()
+
+    def queued(self, op_type: str) -> int:
+        """Ops of op_type queued since the last reset_count (pop_batch's
+        more_coming reads it under the lock)."""
+        return self._queued.get(op_type, 0)
+
+    def reset_count(self, op_type: str) -> None:
+        with self._lock:
+            self._queued[op_type] = 0
 
     def tail(self) -> Optional[WorkItem]:
         with self._lock:
@@ -155,6 +169,8 @@ class Device:
             INTT: cfg.batch_size_intt,
             KEYSWITCH: cfg.batch_size_keyswitch,
         }
+        # batches this worker took, by op type (written by its thread only)
+        self.served: Counter = Counter()
         self.thread = threading.Thread(
             target=self._run, name=f"hexl-tpu-device-{index}", daemon=True
         )
@@ -221,6 +237,7 @@ class Device:
                 if self.buffer.closed and len(self.buffer) == 0:
                     break
                 continue
+            self.served[batch[0].op_type] += 1
             t0 = time.perf_counter()
             fin = None
             try:
@@ -262,9 +279,6 @@ class DevicePool:
         self._worksize = {t: 1 for t in _OP_TYPES}
         self._outstanding: Dict[str, List[WorkItem]] = {t: [] for t in _OP_TYPES}
         self._last_fence_key: Dict[str, Optional[Tuple]] = {t: None for t in _OP_TYPES}
-        # ops pushed into the buffer since the last completed(): with the
-        # worksize it tells a worker whether promised ops are still to come
-        self._pushed = {t: 0 for t in _OP_TYPES}
         self.devices = [
             Device(i, self.buffer, factory(i), self.cfg,
                    notify=self._notify_done, more_coming=self._more_coming)
@@ -272,10 +286,10 @@ class DevicePool:
         ]
 
     def _more_coming(self, op_type: str) -> bool:
-        # read without the lock (a worker calls this under the buffer's lock,
-        # and enqueue takes the two in the other order); a stale read only
-        # ends a batch early or costs one linger timeout
-        return self._pushed[op_type] < self._worksize[op_type]
+        # called by a worker under the buffer's lock: the ops queued since the
+        # last completed() against the worksize, read without the pool's lock
+        # (enqueue and completed() take the two in the other order)
+        return self.buffer.queued(op_type) < self._worksize[op_type]
 
     def _notify_done(self) -> None:
         with self._done:
@@ -305,8 +319,6 @@ class DevicePool:
             self._outstanding[op_type].append(item)
             sync = self._worksize[op_type] == 1
         self.buffer.push(item)
-        with self._lock:
-            self._pushed[op_type] += 1
         if sync:
             self.completed(op_type)
 
@@ -323,7 +335,7 @@ class DevicePool:
             items = list(self._outstanding[op_type])
             self._outstanding[op_type] = []
             self._worksize[op_type] = 1
-            self._pushed[op_type] = 0
+            self.buffer.reset_count(op_type)
             self._last_fence_key[op_type] = None
         for i in items:
             err = i.args.get("error")

@@ -82,6 +82,7 @@ def make_keyswitch_vector(
     noise_bound: int = 3,
     nonzero_input: bool = True,
     plain_modulus: int | None = None,
+    moduli: List[int] | None = None,
 ) -> KeySwitchVector:
     """Generate one semantically-valid keyswitch vector.
 
@@ -93,11 +94,18 @@ def make_keyswitch_vector(
     encrypt P*s_old with noise t*e) and `expected_output` comes from the
     golden model's BGV tail (golden.keyswitch plain_modulus), whose rounding
     delta is divisible by t — so the keyswitch noise is == 0 (mod t) and the
-    BGV message survives exactly (test_keyswitch_bgv.py proves it)."""
+    BGV message survives exactly (test_keyswitch_bgv.py proves it).
+
+    moduli: the K moduli (the last the special prime), each q = 1 mod 2n, in
+    place of nt.generate_primes(K, modulus_bits, n)."""
     rng = np.random.default_rng(seed)
     t_scale = 1 if plain_modulus is None else int(plain_modulus)
     L, K = decomp_modulus_size, key_modulus_size
-    moduli = nt.generate_primes(K, modulus_bits, n)
+    if moduli is None:
+        moduli = nt.generate_primes(K, modulus_bits, n)
+    moduli = [int(q) for q in moduli]
+    if len(moduli) != K or any(q % (2 * n) != 1 for q in moduli):
+        raise ValueError(f"need {K} moduli q = 1 mod {2 * n}, got {moduli}")
     P = moduli[K - 1]
     QP = 1
     for q in moduli:

@@ -73,6 +73,11 @@ def pytest_configure(config):
         "unless HEXL_TPU_HEAVY_TESTS=1 — the fast tier keeps a smaller "
         "variant of every code path",
     )
+    config.addinivalue_line(
+        "markers",
+        "card: needs a CUDA device (the port's hardware tier); skips without "
+        "one, and without HEXL_TORCH_HW_TESTS=1",
+    )
 
 
 def pytest_collection_modifyitems(config, items):

@@ -42,6 +42,8 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.parallel.sharded",
     "hexl_fpga_tpu_torch.parallel.rank_ops",
     "hexl_fpga_tpu_torch.utils.probe_gloo",
+    "hexl_fpga_tpu_torch.utils.fuzz_card",
+    "hexl_fpga_tpu_torch.utils.sanitize_kernels",
 ]
 
 

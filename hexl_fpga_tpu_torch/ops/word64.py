@@ -38,8 +38,13 @@ def to_i64_np(a) -> np.ndarray:
 
 
 def from_u64_np(a, device="cpu") -> torch.Tensor:
-    """u64 numpy array -> int64 tensor of the same bit patterns on `device`
-    (the CPU tensor shares the array's memory)."""
+    """u64 numpy array, or a CPU int64 tensor of u64 bit patterns -> int64
+    tensor of the same bit patterns on `device` (the CPU tensor shares the
+    input's memory).  A tensor in pinned memory goes to the card on the
+    current stream without blocking the host: leave it unchanged until an
+    event recorded behind the copy has completed."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device, non_blocking=a.is_pinned())
     return torch.from_numpy(to_i64_np(a)).to(device)
 
 

@@ -119,7 +119,12 @@ class TorchExecutor(_Base):
     waits for no body; the body runs on the thread's current (compute)
     stream after the upload's event; the copy back of batch i-1 waits for
     its own body's event alone and runs on the copy stream while body i
-    computes.  On the CPU there are no streams."""
+    computes.  On the CPU there are no streams.
+
+    A batch's operands are copied from the caller's buffers straight into
+    pinned host tensors, so the upload does not hold the worker; torch's
+    caching host allocator reuses their blocks once the copies that read
+    them have completed."""
 
     def __init__(self, device_index: int, force_cpu: bool):
         self.copy_stream = None
@@ -146,6 +151,25 @@ class TorchExecutor(_Base):
         """Make this executor's device the calling thread's current one."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
+
+    def _submit_gathered(self, batch, operands, body, scatter):
+        """_submit of a batch whose operands, (arg key, row shape) in
+        operands, are copied from each item straight into a host tensor of
+        (len(batch), *row) int64 values, pinned on CUDA."""
+        host = []
+        for key, row in operands:
+            t = torch.empty((len(batch), *row), dtype=torch.int64,
+                            pin_memory=self.device.type == "cuda")
+            dst = t.numpy().view(np.uint64)
+            for b, item in enumerate(batch):
+                np.copyto(dst[b], np.asarray(item.args[key], dtype=np.uint64)
+                          .reshape(row))
+            host.append(t)
+
+        def stage():
+            return tuple(w.from_u64_np(t, self.device) for t in host)
+
+        return self._submit(stage, body, scatter)
 
     def _submit(self, stage, body, scatter):
         """One batch, split into submit and the returned finalize: stage()
@@ -215,29 +239,20 @@ class TorchExecutor(_Base):
         a = batch[0].args
         n, M = a["n"], a["n_moduli"]
         runner = dyadic_cuda.runner(np.asarray(a["moduli"])[:M], self.device)
-        ops = [np.stack([np.asarray(i.args[key], dtype=np.uint64).reshape(2, M, n)
-                         for i in batch])
-               for key in ("operand1", "operand2")]
-
-        def stage():
-            return tuple(w.from_u64_np(x, self.device) for x in ops)
-
-        return self._submit(stage, runner.run, _scatter_to(batch, "results"))
+        return self._submit_gathered(
+            batch, [("operand1", (2, M, n)), ("operand2", (2, M, n))],
+            runner.run, _scatter_to(batch, "results"))
 
     def run_dyadic_multiply(self, batch):
         self.submit_dyadic_multiply(batch)()
 
     def _submit_transform(self, batch, transform, tabs):
         """Shared submit/finalize split of the worksize-batched `_NTT` /
-        `_INTT` streams: stack the operands, launch, and leave the copy back
+        `_INTT` streams: gather the operands, launch, and leave the copy back
         into the caller's operand buffers (in place) to finalize."""
-        x = np.stack([np.asarray(i.args["operand"], dtype=np.uint64) for i in batch])
-
-        def stage():
-            return (w.from_u64_np(x, self.device),)
-
-        return self._submit(stage, lambda x: transform(x, tabs),
-                            _scatter_to(batch, "operand"))
+        return self._submit_gathered(
+            batch, [("operand", np.shape(batch[0].args["operand"]))],
+            lambda x: transform(x, tabs), _scatter_to(batch, "operand"))
 
     def submit_ntt(self, batch):
         # the caller's tables are used as given (cached on the device by
@@ -276,17 +291,13 @@ class TorchExecutor(_Base):
             device=self.device,
             plain_modulus=a.get("plain_modulus"),
         )
-        ts = np.stack(
-            [np.asarray(i.args["t_target"], dtype=np.uint64).ravel() for i in batch]
-        )
-        rs = np.stack(
-            [np.asarray(i.args["result"], dtype=np.uint64).ravel() for i in batch]
-        )
         if ctx.wire_pack_enabled():
             # 52-bit words both ways (HEXL_TPU_WIRE_PACK=1): the host packs
             # (the native codec), the copy stream moves packed words, the
             # card unpacks and packs (the reference's dispatch_batch32p route)
-            rp, tp = ctx.pack_operands(rs, ts)
+            rp, tp = ctx.pack_operands(
+                *(np.stack([np.asarray(i.args[key], dtype=np.uint64).ravel()
+                            for i in batch]) for key in ("result", "t_target")))
 
             def stage_packed():
                 return (wirepack.to_device(rp, self.device),
@@ -301,9 +312,6 @@ class TorchExecutor(_Base):
                 _scatter_to(batch, "result",
                             lambda h: wirepack.unpack_u64_native(h.view(np.uint32))))
 
-        def stage():  # the handles' own uploads
-            return ctx.stage_ciphertext(rs).data, ctx.stage_target(ts).data
-
         def body(r, t):
             return ctx.dispatch_batch(
                 keyswitch_cuda.DeviceCiphertext(r, ctx),
@@ -311,7 +319,10 @@ class TorchExecutor(_Base):
                 a["k_switch_keys"], a["modswitch_factors"],
             )
 
-        return self._submit(stage, body, _scatter_to(batch, "result"))
+        return self._submit_gathered(
+            batch,
+            [("result", (ctx.comp, ctx.L, ctx.n)), ("t_target", (ctx.L, ctx.n))],
+            body, _scatter_to(batch, "result"))
 
     def run_keyswitch(self, batch):
         self.submit_keyswitch(batch)()

@@ -29,7 +29,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      twiddles and modswitch factors; two ops carry the vector's own operands
      (checked against its expected_output), the rest operands drawn from a
      numpy seed; EVERY op is checked against the golden model, and the launch
-     counters must read 7 forward / 7 inverse / 6 tail launches per batch;
+     counters must read 7 forward / 7 inverse / 6 tail / 7 MAC launches per
+     batch;
      then `copy_overlap` (the executor's copy stream): 96 KeySwitch ops in
      3 batches of 32 through the API with the executor's timing events on,
      every op against the device context's own batch (held to the golden
@@ -48,7 +49,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
   6. drives the device KeySwitch context by hand at 16384_6_7_7_2, batch 32
      (`device_path`): the fused transform+MAC schedule (`fused_mac=True`)
      against the default schedule bit for bit and two ops against the golden
-     model, with 7 inverse / 7 fused-MAC / 6 tail / 0 forward launches; the
+     model, with 7 inverse / 7 fused-MAC / 6 tail / 6 keyswitch_mac (the
+     identity limbs) / 0 forward launches; the
      `exact128` MAC and the unfused tail against the same output; the
      schedules' device bodies timed side by side, ten turns each; the BGV tail
      (`plain_modulus=65537`) fused against unfused, against the golden model,
@@ -59,7 +61,9 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      kernel phase holds `ntt_fwd_mac` against its plain version at
      (192, 16384) under the special prime and two decomp moduli, with and
      without a skipped limb, on canonical and random 64-bit input, and at
-     n = 1024.  The `kernels` entries of the split kernels carry their launch
+     n = 1024; `keyswitch_mac` (the default schedule's MAC) against its plain
+     version at the engines' broadcast shapes, timed at (6, 2, 32, 16384)
+     and at batch 1.  The `kernels` entries of the split kernels carry their launch
      shape from the card (`split`: parts, the MAC's cluster, registers,
      blocks per SM, waves) at every path shape: `ntt_inv` at (32, 16384),
      (64, 16384) (`rows_2B`) and `_INTT`'s (256, 16384), `ntt_fwd_mac` at 192
@@ -111,7 +115,7 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      (equal to the port's) against the golden transforms and the round
      trip; the 64 KeySwitch ops again with two C++ workers on the one card
      (NUM_DEV = 2).  No decline, no error, every op served by the backend,
-     the launches per served batch (7 / 7 / 6, 1, 1); the C API's rates
+     the launches per served batch (7 / 7 / 6 / 7, 1, 1); the C API's rates
      beside the Python API's, batches by ABI version, the library's build
      seconds,
  13. drives `sharded_path`: the multi-device layer (`parallel/`) with its
@@ -635,6 +639,86 @@ def check_mac_kernel(vec, device):
     return entry
 
 
+def keyswitch_mac_bound(limbs: int, Bv: int, Bk: int, comp: int, n: int):
+    """(bound_ms, bound_by) for keyswitch_mac: the limbs, the key and precon
+    rows and the sums each read or written once, against `limbs` lazy terms
+    (a 64-bit low product and three 32x32 partials of the quotient) per
+    output and one close."""
+    B = max(Bv, Bk)
+    nbytes = 8 * (limbs * Bv * n + 2 * limbs * comp * Bk * n + comp * B * n)
+    imad = comp * B * n * (limbs * (IMAD_MULLO64 + 3) + IMAD_MULLO64)
+    return larger_bound(nbytes, imad)
+
+
+def check_keyswitch_mac_kernel(vec, device):
+    """keyswitch_mac against its plain version at the engines' shapes (a key
+    row for the batch; one per batch row; one source row for S key rows; the
+    identity limb's strided view; an operand 8 bytes off 16), on canonical
+    and any-u64 limbs, each sum below 28q; then its times at (L, 2, BATCH, n)
+    and at batch 1; returns its `kernels` entry."""
+    n, L, K = vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size
+    ctx = keyswitch_cuda.get_context(
+        n, L, K, vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors,
+        device=device,
+    )
+    keys, kp = ctx.device_keys(vec.key_vectors)
+    rng = np.random.default_rng(18)
+    err = 0
+    col = lambda x, j, rows=slice(None): x[rows, :, j, None, :]
+
+    def same(val, key, p, q):
+        got = ntt_cuda.keyswitch_mac(val, key, p, q)
+        assert int(got.min()) >= 0 and int(got.max()) < 28 * q, "lazy sum out of range"
+        return assert_same("keyswitch_mac", got, ntt_cuda.keyswitch_mac_plain(val, key, p, q))
+
+    for bits in (50, 64):
+        val = rand_u64(rng, (L, BATCH, n), bits, device)
+        for j in (K - 1, 0):
+            q = ctx.moduli[j]
+            err = max(err, same(val, col(keys, j), col(kp, j), q))
+            err = max(err, same(val[:, :1], col(keys, j), col(kp, j), q))  # batch 1
+        t = rand_u64(rng, (BATCH, L, n), bits, device)  # the identity limb
+        err = max(err, same(t[:, 1, :][None], col(keys, 1, slice(1, 2)),
+                             col(kp, 1, slice(1, 2)), ctx.moduli[1]))
+    q = ctx.moduli[0]
+    rk = rng.integers(0, q, size=(L, 2, BATCH, n), dtype=np.uint64)
+    rkd, rpd = w.from_u64_np(rk, device), w.from_u64_np(w.precon64_np(rk, q), device)
+    val = rand_u64(rng, (L, BATCH, n), 64, device)
+    err = max(err, same(val, rkd, rpd, q))                  # a key row per batch row
+    err = max(err, same(val[:, :1], rkd, rpd, q))           # one source row, S keys
+    flat = torch.empty(val.numel() + 1, dtype=torch.int64, device=device)
+    off = flat[1:].view_as(val)
+    off.copy_(val)
+    err = max(err, same(off, col(keys, 0), col(kp, 0), q))  # one-word accesses
+
+    sp_j = K - 1
+    q = ctx.moduli[sp_j]
+    key, p = col(keys, sp_j), col(kp, sp_j)
+    ins = rotating(lambda: rand_u64(rng, (L, BATCH, n), 52, device), L * BATCH * n * 8)
+    one = rotating(lambda: rand_u64(rng, (L, 1, n), 52, device), L * n * 8)
+    mac = lambda: ntt_cuda.keyswitch_mac(ins(), key, p, q)
+    mac1 = lambda: ntt_cuda.keyswitch_mac(one(), key, p, q)
+    b_ms, b_by = keyswitch_mac_bound(L, BATCH, 1, 2, n)
+    entry = {
+        "name": "keyswitch_mac", "route": "cuda", "source": KERNEL_SRC,
+        "replaces": "torch glue: the reference's XLA composition, "
+                    "hexl_fpga_tpu/ops/keyswitch_tpu.py:226 _mac_term, :243 _mac_close",
+        "shape": [L, 2, BATCH, n], "launches": None, "max_abs_err": err,
+        "ms": time_ms(mac, 20),
+        "plain_ms": time_ms(lambda: ntt_cuda.keyswitch_mac_plain(ins(), key, p, q), 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+        # no single PyTorch call computes a modular MAC
+        "library_ms": None,
+        "batch_1": {
+            "shape": [L, 2, 1, n], "ms": time_ms(mac1, 20),
+            "plain_ms": time_ms(lambda: ntt_cuda.keyswitch_mac_plain(one(), key, p, q), 3),
+            "bound_ms": keyswitch_mac_bound(L, 1, 1, 2, n)[0]},
+    }
+    profile_later(entry, "keyswitch_mac", mac)
+    profile_later(entry["batch_1"], "keyswitch_mac", mac1)
+    return entry
+
+
 def dyadic_moduli():
     return [int(q) for q in nt.generate_primes(DYADIC_MODULI, DYADIC_BITS, DYADIC_N)]
 
@@ -842,7 +926,8 @@ def main_path(vec, device, rehearse, ops, want, golden_s):
     first, _ = drive_api(vec, ops)
     ntt_cuda.reset_launch_counts()
     results, wall_s = drive_api(vec, ops)
-    launches = {k: ntt_cuda.LAUNCHES[k] for k in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail")}
+    launches = {k: ntt_cuda.LAUNCHES[k]
+                for k in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "keyswitch_mac")}
     assert sum(ntt_cuda.LAUNCHES.values()) == sum(launches.values())
     hexl.release_FPGA_resources()
 
@@ -851,7 +936,7 @@ def main_path(vec, device, rehearse, ops, want, golden_s):
         np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
     batches = WORKSIZE // BATCH
     expected = {"ntt_fwd": (L + 1) * batches, "ntt_inv": (L + 1) * batches,
-                "ntt_fwd_tail": L * batches}
+                "ntt_fwd_tail": L * batches, "keyswitch_mac": (L + 1) * batches}
     if rehearse:
         assert launches == dict.fromkeys(expected, 0), launches
     else:
@@ -922,7 +1007,8 @@ def copy_overlap_path(vec, device, rehearse):
         np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
     expected = {} if rehearse else {"ntt_fwd": (L + 1) * OVERLAP_BATCHES,
                                     "ntt_inv": (L + 1) * OVERLAP_BATCHES,
-                                    "ntt_fwd_tail": L * OVERLAP_BATCHES}
+                                    "ntt_fwd_tail": L * OVERLAP_BATCHES,
+                                    "keyswitch_mac": (L + 1) * OVERLAP_BATCHES}
     assert launches == expected, (launches, expected)
     out = {"config": vec.config_name, "ops": len(ops), "batch": BATCH,
            "ops_checked_vs_device_batch": len(ops), "launches": launches}
@@ -1181,7 +1267,9 @@ def device_path(vec, device, rehearse):
     np.testing.assert_array_equal(got[0], vec.expected_output)
     expected = dict.fromkeys(ntt_cuda.LAUNCHES, 0)
     if not rehearse:
-        expected.update(ntt_inv=L + 1, ntt_fwd_mac=L + 1, ntt_fwd_tail=L)
+        # the identity limb's term: one keyswitch_mac a decomp engine
+        expected.update(ntt_inv=L + 1, ntt_fwd_mac=L + 1, ntt_fwd_tail=L,
+                        keyswitch_mac=L)
     assert launches == expected, (launches, expected)
 
     # 2. the other two schedules
@@ -1347,7 +1435,8 @@ def wire_pack_path(vec, device, rehearse, ops, want, unpacked_ops_per_s):
     batches = WORKSIZE // BATCH
     expected = {} if rehearse else {"ntt_fwd": (L + 1) * batches,
                                     "ntt_inv": (L + 1) * batches,
-                                    "ntt_fwd_tail": L * batches}
+                                    "ntt_fwd_tail": L * batches,
+                                    "keyswitch_mac": (L + 1) * batches}
     assert launches == expected, (launches, expected)
     words = lambda rows: BATCH * rows * n * 13 // 8 * 4
     out = {"config": vec.config_name, "ops": WORKSIZE, "batch": BATCH,
@@ -2007,7 +2096,8 @@ def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
         return value
 
     def keyswitch_launches(L):
-        return {"ntt_fwd": L + 1, "ntt_inv": L + 1, "ntt_fwd_tail": L}
+        return {"ntt_fwd": L + 1, "ntt_inv": L + 1, "ntt_fwd_tail": L,
+                "keyswitch_mac": L + 1}
 
     try:
         # 1. the main path's 64 ops, under v2 then under v1 alone: a fresh
@@ -2199,9 +2289,10 @@ def check_sharded_kernels(vec, device, q, n, rehearse):
 
 def sharded_ks_launches(L, P, D):
     """Kernel launches of one ShardedKeySwitch.run over mp = P, dp = D:
-    INTT1 on every rank, one transform per engine and one INTT2 per limb
-    group, one tail per decomp engine."""
-    return {"ntt_inv": L * P * D + D, "ntt_fwd": (L + 1) * D, "ntt_fwd_tail": L * D}
+    INTT1 on every rank, one transform and one MAC per engine and one INTT2
+    per limb group, one tail per decomp engine."""
+    return {"ntt_inv": L * P * D + D, "ntt_fwd": (L + 1) * D,
+            "keyswitch_mac": (L + 1) * D, "ntt_fwd_tail": L * D}
 
 
 def sharded_path(vec, device, rehearse):
@@ -2316,10 +2407,12 @@ def sharded_path(vec, device, rehearse):
     group({"mp": 2}, rank_ops.hoisted, {**ks_spec, "rs": rs, "ts": ts, "galois": g}, {
         "hoist": ("hoist mp=2", {"ntt_inv": 2 * L, "ntt_fwd": L + 1},
                   lambda outs: {"planes_per_rank": outs}, {"batch": BATCH}),
-        "run_hoisted": ("run_hoisted mp=2", {"ntt_inv": 1, "ntt_fwd_tail": L},
+        "run_hoisted": ("run_hoisted mp=2",
+                        {"ntt_inv": 1, "keyswitch_mac": L + 1, "ntt_fwd_tail": L},
                         each_equal(want_plain, "run_hoisted vs single card"),
                         {"batch": BATCH, "checked": "single-card run_hoisted"}),
-        "run_hoisted galois": ("run_hoisted galois mp=2", {"ntt_inv": 1, "ntt_fwd_tail": L},
+        "run_hoisted galois": ("run_hoisted galois mp=2",
+                               {"ntt_inv": 1, "keyswitch_mac": L + 1, "ntt_fwd_tail": L},
                                each_equal(want_g, "run_hoisted galois vs single card"),
                                {"batch": BATCH, "galois": g,
                                 "checked": "single-card run_hoisted(galois)"})})
@@ -2550,7 +2643,8 @@ def examples_path(device, rehearse):
 # ---------------------------------------------------------------------------
 
 ENVELOPE_SEED = 12
-CHECKED_WRAPPERS = ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac", "dyadic_multiply")
+CHECKED_WRAPPERS = ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac", "keyswitch_mac",
+                    "dyadic_multiply")
 
 
 def envelope_grids(rehearse):
@@ -2662,7 +2756,8 @@ def multi_worker_path(vec, device, rehearse, ops, want, single_rates):
     ks_b = batches[scheduler.KEYSWITCH]
     expected = {"ntt_fwd": (L + 1) * ks_b + batches[scheduler.NTT],
                 "ntt_inv": (L + 1) * ks_b + batches[scheduler.INTT],
-                "ntt_fwd_tail": L * ks_b, "dyadic_mul": batches[scheduler.DYADIC_MULTIPLY]}
+                "ntt_fwd_tail": L * ks_b, "keyswitch_mac": (L + 1) * ks_b,
+                "dyadic_mul": batches[scheduler.DYADIC_MULTIPLY]}
     assert launches == ({} if rehearse else expected), (launches, expected)
 
     out = {"workers": MULTI_WORKERS, "executor_devices": devices,
@@ -2749,6 +2844,7 @@ def main(rehearse: bool = False) -> int:
                               "max_abs_err": 0, "s": time.perf_counter() - t0}})
         kernels = check_kernels(vec, device)
         kernels.append(check_mac_kernel(vec, device))
+        kernels.append(check_keyswitch_mac_kernel(vec, device))
         kernels.append(check_dyadic_kernel(device))
         at_32768, at_path_shape = check_standalone_transforms(device)
         kernels += at_32768

@@ -4,6 +4,8 @@
 //   hexl_ntt_inv       batched inverse NTT, bit-reversed in -> canonical, natural out
 //   hexl_ntt_fwd_tail  keyswitch tail: +fix, forward NTT, modswitch, accumulate
 //   hexl_ntt_fwd_mac   keyswitch engine: forward NTT fused with the key MAC
+//   hexl_keyswitch_mac keyswitch engine's lazy key MAC on transformed limbs
+//                      (the default schedule's, after hexl_ntt_fwd)
 //
 // The first three replace the fused MXU kernels of
 // hexl_fpga_tpu/ops/ntt_mxu_pallas.py (_fwd_kernel, _inv_kernel, the
@@ -19,7 +21,7 @@
 //
 // Layout: rows of n contiguous u64 (passed as int64 bit patterns).  `tab` is
 // a (4, n) table for one modulus: fwd, fwd_precon, inv, inv_precon.
-// All four run a split core of ntt_kernels.cuh: `parts` blocks per
+// The first four run a split core of ntt_kernels.cuh: `parts` blocks per
 // row, each with n/parts values in dynamic shared memory, several butterfly
 // stages per barrier in registers; the caller chooses parts
 // (ntt_cuda.row_split, ntt_cuda.mac_split).  The forward kernels (fwd_split)
@@ -183,6 +185,90 @@ ntt_fwd_mac_kernel(const u64* __restrict__ data, const u64* __restrict__ keys,
   }
 }
 
+// Keyswitch lazy key MAC of the default schedule, for one engine modulus q:
+// the engine's transformed source limbs val (limbs, Bv, n) against its key
+// column and precons (limbs, comp, Bk, n), Bv and Bk each 1 or B:
+//   out[k, b, x] = sum_i key[i,k,b,x] * val[i,b,x]
+//                  - (sum_i Q(val[i,b,x], kp[i,k,b,x])) * q          mod 2^64
+//   Q(a, p) = a1*p1 + (a0*p1 >> 32) + (a1*p0 >> 32)   (32-bit halves)
+// Q is the Harvey quotient without the a0*p0 partial and the low-half carry
+// chain (short by at most 2), and the Q*q subtraction is deferred to once a
+// sum: the torch composition it replaces (keyswitch_mac_plain) computes the
+// same words, since wrapping adds commute.  The true sum is of terms in
+// [0, 4q), so below 28q < 2^58 for q <= 2^52 and limbs <= 7: the input
+// contract of the tails and of INTT2's Barrett.
+// No TPU kernel has it: the reference composes it in XLA, as the torch glue
+// did here (about 20 elementwise and reduce launches an engine over
+// (limbs, comp, B, n) intermediates).  Bytes bound it: per output word
+// limbs/comp val words, 2 * limbs key and precon words (L2 hits after the
+// first batch row when Bk = 1) and one store, against limbs lazy terms of
+// six 32-bit multiply-adds.  Each thread keeps both components' two sums
+// for V adjacent coefficients in registers over the limbs, so val is read
+// once for all components, and every access is V * 8 contiguous bytes along
+// n (V = 2: 16-byte loads and stores where pointers and strides allow).
+// Grid: x over the coefficients, y the batch row.
+constexpr int KS_MAC_THREADS = 256;
+constexpr int KS_MAC_MAX_COMP = 2;
+
+struct MacStrides {  // in words; a broadcast row has stride 0
+  long long val_i, val_b, key_i, key_k, key_b, kp_i, kp_k, kp_b;
+};
+
+__device__ __forceinline__ u64 mulhi_approx(u64 a, u64 p) {
+  const unsigned a0 = (unsigned)a, a1 = (unsigned)(a >> 32);
+  const unsigned p0 = (unsigned)p, p1 = (unsigned)(p >> 32);
+  return (u64)a1 * p1 + __umulhi(a0, p1) + __umulhi(a1, p0);
+}
+
+template <int V>
+__device__ __forceinline__ void load_words(u64 (&v)[V], const u64* p) {
+  if constexpr (V == 2) {
+    const ulonglong2 t = __ldg(reinterpret_cast<const ulonglong2*>(p));
+    v[0] = t.x;
+    v[1] = t.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__global__ void __launch_bounds__(KS_MAC_THREADS)
+keyswitch_mac_kernel(const u64* __restrict__ val, const u64* __restrict__ key,
+                     const u64* __restrict__ kp, u64* __restrict__ out,
+                     MacStrides st, int limbs, int comp, int B, int n, u64 q) {
+  const int x = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (x >= n) return;
+  const long long b = blockIdx.y;
+  u64 wx[KS_MAC_MAX_COMP][V] = {}, qs[KS_MAC_MAX_COMP][V] = {};
+  for (int i = 0; i < limbs; ++i) {
+    u64 v[V];
+    load_words<V>(v, val + i * st.val_i + b * st.val_b + x);
+#pragma unroll
+    for (int k = 0; k < KS_MAC_MAX_COMP; ++k) {
+      if (k >= comp) break;
+      u64 w[V], p[V];
+      load_words<V>(w, key + i * st.key_i + k * st.key_k + b * st.key_b + x);
+      load_words<V>(p, kp + i * st.kp_i + k * st.kp_k + b * st.kp_b + x);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        wx[k][e] += w[e] * v[e];
+        qs[k][e] += mulhi_approx(v[e], p[e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < KS_MAC_MAX_COMP; ++k) {
+    if (k >= comp) break;
+    u64* dst = out + ((size_t)k * B + b) * n + x;
+    if constexpr (V == 2) {
+      *reinterpret_cast<ulonglong2*>(dst) =
+          make_ulonglong2(wx[k][0] - qs[k][0] * q, wx[k][1] - qs[k][1] * q);
+    } else {
+      dst[0] = wx[k][0] - qs[k][0] * q;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // C entries
 // ---------------------------------------------------------------------------
@@ -310,6 +396,31 @@ extern "C" int hexl_ntt_fwd_mac(const void* data, const void* keys,
   return launch(k, dim3(B * parts, cluster), len, smem, cluster, stream,
                 (const u64*)data, (const u64*)keys, (const u64*)kp, (u64*)out,
                 (const u64*)tab, n, B, comp, K, j, skip, limbs, kc, q, q_barr);
+}
+
+// out (comp, B, n), contiguous, every element stored once.  Strides in
+// words (0 for a broadcast row); the last dimension is contiguous.  vec = 2
+// asks for 16-byte accesses: every pointer 16-byte aligned, every stride and
+// n even (the caller checks).
+extern "C" int hexl_keyswitch_mac(const void* val, const void* key,
+                                  const void* kp, void* out, int limbs,
+                                  int comp, int B, int n, long long val_i,
+                                  long long val_b, long long key_i,
+                                  long long key_k, long long key_b,
+                                  long long kp_i, long long kp_k,
+                                  long long kp_b, u64 q, int vec,
+                                  void* stream) {
+  if (limbs < 1 || comp < 1 || comp > KS_MAC_MAX_COMP || B < 1 || B > 65535 ||
+      n < 1 || (vec != 1 && vec != 2) || n % vec)
+    return (int)cudaErrorInvalidValue;
+  const MacStrides st = {val_i, val_b, key_i, key_k, key_b, kp_i, kp_k, kp_b};
+  const int per_block = KS_MAC_THREADS * vec;
+  const dim3 grid((n + per_block - 1) / per_block, B);
+  const auto kern = vec == 2 ? keyswitch_mac_kernel<2> : keyswitch_mac_kernel<1>;
+  kern<<<grid, KS_MAC_THREADS, 0, (cudaStream_t)stream>>>(
+      (const u64*)val, (const u64*)key, (const u64*)kp, (u64*)out, st, limbs,
+      comp, B, n, q);
+  return (int)cudaGetLastError();
 }
 
 // What the card made of a split kernel (FWD, TAIL, INV, MAC; the MAC with

@@ -6,19 +6,19 @@ moduli, K key moduli, 2 key components) the default schedule is
 
   INTT1            one ntt_inv per decomp modulus over (B, n)         L launches
   special engine   ntt_fwd of the stacked INTT1 outputs (L*B, n) under
-                   q_k, MAC against the keys, Barrett, ntt_inv over
-                   (2B, n), +q_k/2                                  1 + 1 launches
-  decomp engines   ntt_fwd of the same stack under q_j, MAC          L launches
+                   q_k, keyswitch_mac against the keys, Barrett, ntt_inv
+                   over (2B, n), +q_k/2                          1 + 1 + 1 launches
+  decomp engines   ntt_fwd of the same stack under q_j, keyswitch_mac   2L launches
   tails            ntt_fwd_tail per decomp modulus over (2B, n)      L launches
 
 and the constructor's options move parts of it:
 
   fused_mac=True      each engine is ONE ntt_fwd_mac launch (transform and
-                      key MAC fused; the identity limb's term is added by the
-                      glue), L + 1 launches in place of L + 1 ntt_fwd and the
-                      MAC glue;
-  mac_impl="exact128" the MAC glue accumulates full 128-bit products and
-                      reduces once per sum (no precon reads);
+                      key MAC fused; the identity limb's term is one
+                      keyswitch_mac over that limb), L + 1 launches in place
+                      of L + 1 ntt_fwd and keyswitch_mac;
+  mac_impl="exact128" the MAC as torch glue that accumulates full 128-bit
+                      products and reduces once per sum (no precon reads);
   fused_tail=False    the tail as torch glue around ntt_fwd;
   plain_modulus=t     the BGV tail: a per-coefficient digit sigma, computed
                       once from the INTT2 output, folded into every tail.
@@ -26,9 +26,10 @@ and the constructor's options move parts of it:
 The stacked INTT1 outputs feed every engine UNREDUCED: ntt_fwd, ntt_fwd_mac
 and ntt_fwd_tail reduce ANY u64 on load, so the Barrett passes in front of
 each engine fold into the kernels, and the reference's `data_bits` widening
-(53, or 54 under a plain modulus) has no counterpart.  The MAC glue, the
-special engine's Barrett, the +q_k/2 and sigma are plain torch ops on int64
-bit patterns, as they are XLA-composed in the reference.
+(53, or 54 under a plain modulus) has no counterpart.  The special engine's
+Barrett, the +q_k/2 and sigma are plain torch ops on int64 bit patterns, as
+they are XLA-composed in the reference; the deferred key MAC, XLA-composed
+there too, is the hand-written keyswitch_mac kernel here.
 
 Values live on the device as one int64 bit pattern per u64; there are no
 (lo, hi) planes, no row padding to a tile and no interleaved staging entry —
@@ -157,20 +158,6 @@ class KeySwitchContext:
     # -- device body ---------------------------------------------------------
 
     @staticmethod
-    def _mac_term(val, key, kp):
-        """Harvey lazy MAC terms with the APPROXIMATE quotient and the Q*q
-        subtraction DEFERRED across the sum: returns (key*val mod 2^64, Q)
-        per term; sum both over the source limbs and close once."""
-        return w.mullo64(key, val), w.mulhi64_approx(val, kp)
-
-    @staticmethod
-    def _mac_close(wx_sum, q_sum, q):
-        """(sum wx mod 2^64, sum Q) -> the lazy u64 sum.  Exact because the
-        true value sum(w_i x_i - Q_i q) is a sum of [0, 4q) terms, < 28q
-        < 2^58 for q <= 2^52 and L <= 7, so mod-2^64 arithmetic is lossless."""
-        return w.sub64(wx_sum, w.mullo64(q_sum, q))
-
-    @staticmethod
     def _mac_sum128(val, key):
         """QUOTIENT-FREE MAC (mac_impl="exact128"): the full 128-bit products
         key*val summed over the source limbs (dim 0) as a (low, high) pair of
@@ -207,14 +194,14 @@ class KeySwitchContext:
                              kp[rows, :, j, None, :])
 
     def _mac_col(self, val, j, key, kp):
-        """_mac on a key column already taken: key, kp (L', comp, 1 or B, n),
-        one key row for every batch row or one for each."""
+        """_mac on a key column already taken: val (L', 1 or B, n), key, kp
+        (L', comp, 1 or B, n), one key row for every batch row or one for
+        each.  The deferred MAC is one keyswitch_mac call: lazy sums of
+        [0, 4q) terms, < 28q < 2^58 for q <= 2^52 and L' <= 7."""
         q = self.moduli[j]
-        val = val[:, None]  # (L', 1, B, n)
         if self.mac_impl == "exact128":
-            return self._mac_close128(self._mac_sum128(val, key), q)
-        wx, Q = self._mac_term(val, key, kp)
-        return self._mac_close(wx.sum(0), Q.sum(0), q)
+            return self._mac_close128(self._mac_sum128(val[:, None], key), q)
+        return ntt_cuda.keyswitch_mac(val, key, kp, q)
 
     def _engine_acc(self, j, stack, t, keys, kp, skip_t_term):
         """Lazy MAC sums (comp, B, n), < 28q, for engine modulus j."""

@@ -1,6 +1,6 @@
 """Batched negacyclic NTT / INTT / keyswitch-tail / keyswitch-engine on the card.
 
-Four wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
+Five wrappers over the hand-written CUDA kernels of `csrc/ntt_kernels.cu`,
 each with its plain PyTorch version and launch counters beside it:
 
   ntt_fwd       replaces `hexl_fpga_tpu/ops/ntt_mxu_pallas.py` `_fwd_kernel`
@@ -15,6 +15,10 @@ each with its plain PyTorch version and launch counters beside it:
   ntt_fwd_mac   replaces the `raw_fwd_mac_call` kernel: forward NTT of the
                 stacked source limbs (L*B, n) fused with the key MAC into
                 (comp, B, n) lazy u64 sums; `skip_i` leaves one limb out.
+  keyswitch_mac the default schedule's lazy key MAC on limbs ntt_fwd has
+                transformed: (comp, B, n) lazy u64 sums with the approximate
+                Harvey quotient, deferred to once a sum.  No TPU kernel has
+                it (the reference composes it in XLA); it replaces torch glue.
 
 `ntt_fwd` and `ntt_inv` are also the counterpart of the batched butterfly
 kernels of `hexl_fpga_tpu/ops/ntt_pallas.py` (`_fwd_kernel`, `_inv_kernel`:
@@ -67,7 +71,8 @@ from . import _build, nt, twiddles, word64 as w
 
 # launches per kernel since the last reset; a wrapper adds one exactly where
 # it launches its kernel
-LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "ntt_fwd_mac": 0}
+LAUNCHES = {"ntt_fwd": 0, "ntt_inv": 0, "ntt_fwd_tail": 0, "ntt_fwd_mac": 0,
+            "keyswitch_mac": 0}
 _launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
 _this_thread = threading.local()  # thread_launches' dict, where one is open
 
@@ -393,8 +398,12 @@ def _lib():
     lib.hexl_ntt_fwd_tail.argtypes = [p, p, p, p, p, i, i, u, u, u, u, u, i, p]
     lib.hexl_ntt_fwd_mac.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, u, u,
                                      i, i, p]
+    ll = ctypes.c_longlong
+    lib.hexl_keyswitch_mac.argtypes = [p, p, p, p, i, i, i, i, ll, ll, ll, ll,
+                                       ll, ll, ll, ll, u, i, p]
     for fn in (lib.hexl_ntt_fwd, lib.hexl_ntt_inv, lib.hexl_ntt_fwd_tail,
-               lib.hexl_ntt_fwd_mac, lib.hexl_ntt_split_info):
+               lib.hexl_ntt_fwd_mac, lib.hexl_keyswitch_mac,
+               lib.hexl_ntt_split_info):
         fn.restype = ctypes.c_int
     lib.hexl_ntt_split_info.argtypes = [i, i, i, i, i, ctypes.POINTER(ctypes.c_int)]
     return lib
@@ -785,6 +794,95 @@ def ntt_fwd_mac(data, keys, kp, j: int, tabs: ModulusTables,
             tabs.tab.data_ptr(), L, B, comp, K, j,
             -1 if skip_i is None else skip_i, tabs.n, tabs.q, tabs.q_barr,
             parts, cluster)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# keyswitch engine's lazy key MAC, on limbs already transformed
+# ---------------------------------------------------------------------------
+#
+# The default schedule transforms an engine's source limbs with ntt_fwd and
+# then sums them against the key column.  No TPU kernel has this MAC: the
+# reference composes it in XLA (`keyswitch_tpu._mac_term`, `_mac_close`), and
+# so did the torch glue here, about 20 elementwise and reduce launches an
+# engine over (L, comp, B, n) intermediates.  Bytes bound it: it reads the
+# limbs once, the key and precon column once (their rows are L2 hits for
+# every batch row after the first), and writes the sums once; its 32-bit
+# multiply-adds take well under half that time on an H100.  The kernel keeps
+# both components' sums in registers over the limbs, so each limb value is
+# read once for every component.
+
+
+def _check_keyswitch_mac(val, key, kp, q: int, name: str) -> int:
+    """Validate a MAC call; returns B, the batch rows of the output."""
+    if val.dim() != 3 or key.dim() != 4 or key.shape != kp.shape:
+        raise ValueError(
+            f"{name}: expected val (L, B, n) and key, precons one (L, comp, B, n) "
+            f"shape, got {tuple(val.shape)}, {tuple(key.shape)}, {tuple(kp.shape)}")
+    L, Bv, n = val.shape
+    if L < 1 or key.shape[0] != L or key.shape[3] != n:
+        raise ValueError(f"{name}: val {tuple(val.shape)} and key "
+                         f"{tuple(key.shape)} disagree on limbs or n")
+    if not 1 <= key.shape[1] <= MAC_COMPONENTS:
+        raise ValueError(f"{name}: 1 to {MAC_COMPONENTS} key components, "
+                         f"got {key.shape[1]}")
+    B = max(Bv, key.shape[2])
+    if {Bv, key.shape[2]} - {1, B}:
+        raise ValueError(f"{name}: batch rows {Bv} and {key.shape[2]} do not "
+                         f"broadcast (each must be 1 or {B})")
+    for what, x in (("val", val), ("keys", key), ("precons", kp)):
+        if x.dtype != torch.int64:
+            raise TypeError(f"{name}: {what} must be int64 bit patterns, got {x.dtype}")
+        if x.device != val.device:
+            raise ValueError(f"{name}: {what} on {x.device}, val on {val.device}")
+        if x.stride(-1) != 1:
+            raise ValueError(f"{name}: {what} must be contiguous along n")
+    if not 1 < int(q) < (1 << 64):
+        raise ValueError(f"{name}: q must be a modulus below 2^64, got {q}")
+    return B
+
+
+def keyswitch_mac_plain(val, key, kp, q: int) -> torch.Tensor:
+    """Plain PyTorch version of keyswitch_mac (any device): the torch
+    composition the kernel replaces.  Harvey lazy MAC terms with the
+    APPROXIMATE quotient (word64.mulhi64_approx) and the Q*q subtraction
+    DEFERRED across the sum: sum(key*val mod 2^64) - (sum Q)*q, once."""
+    _check_keyswitch_mac(val, key, kp, q, "keyswitch_mac_plain")
+    val = val[:, None]  # (L, 1, Bv, n)
+    wx, Q = w.mullo64(key, val), w.mulhi64_approx(val, kp)
+    return w.sub64(wx.sum(0), w.mullo64(Q.sum(0), q))
+
+
+def _row_stride(x: torch.Tensor, dim: int) -> int:
+    """x's stride along dim in words, 0 where the dim is broadcast (size 1)."""
+    return x.stride(dim) if x.shape[dim] > 1 else 0
+
+
+def keyswitch_mac(val, key, kp, q: int) -> torch.Tensor:
+    """Lazy key MAC of one engine modulus q over L transformed source limbs:
+
+        out[k, b] = sum_i key[i, k, b] * val[i, b]  -  (sum_i Q_i) * q   mod 2^64
+        Q_i = mulhi64_approx(val[i, b], kp[i, k, b])
+
+    val (L, Bv, n) and key, kp (L, comp, Bk, n) int64, Bv and Bk each 1 or B
+    (a key row shared by every batch row, or one each), any strides with n
+    contiguous; out (comp, B, n), contiguous.  With key < q, kp its Harvey
+    precon, val any u64, q <= 2^52 and L <= 7 the true sum of the terms is
+    below 28q, so out is that lazy sum exactly."""
+    B = _check_keyswitch_mac(val, key, kp, q, "keyswitch_mac")
+    if val.device.type == "cpu":
+        return keyswitch_mac_plain(val, key, kp, q)
+    L, comp, _, n = key.shape
+    out = torch.empty((comp, B, n), dtype=torch.int64, device=val.device)
+    strides = (val.stride(0), _row_stride(val, 1),
+               key.stride(0), key.stride(1), _row_stride(key, 2),
+               kp.stride(0), kp.stride(1), _row_stride(kp, 2))
+    # 16-byte accesses where every row starts on 16 bytes
+    vec = 2 if (n % 2 == 0 and all(s % 2 == 0 for s in strides)
+                and all(x.data_ptr() % 16 == 0 for x in (val, key, kp))) else 1
+    _launch("keyswitch_mac", _lib().hexl_keyswitch_mac, val, val.data_ptr(),
+            key.data_ptr(), kp.data_ptr(), out.data_ptr(), L, comp, B, n,
+            *strides, int(q), vec)
     return out
 
 

@@ -227,6 +227,7 @@ _CHECKED = {
     "ntt_inv": (ntt_cuda, ntt_cuda.ntt_inv_plain, 3),
     "ntt_fwd_tail": (ntt_cuda, ntt_cuda.ntt_fwd_tail_plain, 8),
     "ntt_fwd_mac": (ntt_cuda, ntt_cuda.ntt_fwd_mac_plain, 7),
+    "keyswitch_mac": (ntt_cuda, ntt_cuda.keyswitch_mac_plain, 4),
     "dyadic_multiply": (dyadic_cuda, dyadic_cuda.dyadic_multiply_plain, 3),
 }
 

@@ -10,7 +10,9 @@ The shapes cover every launch form of the six TPU kernels' ports:
 the split cores at C = 1 (n = 1024), C = 2 (n = 16384, one row) and C = 4
 (n = 32768), for `ntt_fwd` (B1, B6) and `ntt_inv` (B2, B6); `ntt_fwd_tail`
 (B3) at (2, 1024); `ntt_fwd_mac` (B5) in its cluster of 2 at n = 16384,
-without a skipped limb and with one; `dyadic_mul` (B4) at (1, 2, 3, 1024).
+without a skipped limb and with one; `dyadic_mul` (B4) at (1, 2, 3, 1024);
+and `keyswitch_mac`, the default schedule's key MAC, at (3, 2, 2, 1024) with
+16-byte accesses and on operands 8 bytes off 16 (one-word accesses).
 Operands are drawn with numpy from a seed and copied to the card, so the
 only device work is the kernels' and the copies; the plain versions run on
 the CPU.  Prints one JSON line; exit code 0 only if every kernel equals its
@@ -36,6 +38,7 @@ TAIL = (2, 1024)
 MAC = {"limbs": 3, "B": 1, "comp": 2, "n": 16384, "parts": 2, "cluster": 2,
        "skip": (None, 1)}
 DYADIC = (1, 2, 3, 1024)
+KS_MAC = (3, 2, 2, 1024)  # (limbs, comp, B, n), one key row for the batch
 
 
 def _pair(a: np.ndarray, device):
@@ -93,6 +96,19 @@ def cases(rng, device):
     y, cy = _pair(rng.integers(0, 1 << 62, size=DYADIC, dtype=np.uint64) % (4 * qcol), device)
     run, crun = dyadic_cuda.runner(moduli, device), dyadic_cuda.runner(moduli, "cpu")
     out.append((f"dyadic_mul {DYADIC}", partial(run.run, x, y), partial(crun.run, cx, cy)))
+
+    L, comp, B, n = KS_MAC
+    q = int(nt.generate_primes(1, 52, n)[0])
+    val = rng.integers(0, 1 << 64, size=(L, B, n), dtype=np.uint64)
+    k = rng.integers(0, q, size=(L, comp, 1, n), dtype=np.uint64)
+    (v, cv), (kd, ck), (pd, cp) = (_pair(a, device) for a in (val, k, w.precon64_np(k, q)))
+    flat = torch.empty(v.numel() + 1, dtype=torch.int64, device=device)
+    off = flat[1:].view_as(v)  # 8 bytes off a 16-byte boundary
+    off.copy_(v)
+    for what, x in (("", v), (" unaligned", off)):
+        out.append((f"keyswitch_mac {KS_MAC}{what}",
+                    partial(ntt_cuda.keyswitch_mac, x, kd, pd, q),
+                    partial(ntt_cuda.keyswitch_mac_plain, cv, ck, cp, q)))
     return out
 
 

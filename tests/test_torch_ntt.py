@@ -175,5 +175,6 @@ def test_cpu_tensors_launch_nothing(q):
     ntt_cuda.ntt_fwd_tail(x, x, x, tabs, 0, 1, 1)
     keys = torch.zeros(2, 2, 3, N, dtype=torch.int64)
     ntt_cuda.ntt_fwd_mac(x, keys, keys, 0, tabs)
+    ntt_cuda.keyswitch_mac(x.view(2, 1, N), keys[:, :, :1], keys[:, :, :1], q)
     assert ntt_cuda.LAUNCHES == dict.fromkeys(
-        ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac"), 0)
+        ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac", "keyswitch_mac"), 0)

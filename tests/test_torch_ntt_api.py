@@ -131,13 +131,13 @@ def test_split_schedule_at_n_32768(direction, parts):
 
 
 def test_n_beyond_the_kernels_is_refused():
-    """n must be a power of two from 4 to 32768, on any device; four kernels
+    """n must be a power of two from 4 to 32768, on any device; five kernels
     count their launches."""
     for n in (65536, 3, 1000, 2):
         with pytest.raises(ValueError, match=f"no NTT kernel serves n = {n}"):
             ntt_cuda.modulus_tables(n, 1152921504606584833, device="cpu")
     assert set(ntt_cuda.LAUNCHES) == {
-        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac"}
+        "ntt_fwd", "ntt_inv", "ntt_fwd_tail", "ntt_fwd_mac", "keyswitch_mac"}
 
 
 # -- the API section ----------------------------------------------------------

@@ -226,8 +226,9 @@ from hexl_fpga_tpu_torch.parallel import mesh as mesh_mod, projection, rank_ops,
 from hexl_fpga_tpu_torch.parallel.mesh import run_ranks
 from hexl_fpga_tpu_torch.runtime import scheduler
 from hexl_fpga_tpu_torch.utils import cuda_timing, fuzz_card, keycache, sanitize_kernels, vectors
-from hexl_fpga_tpu_torch.utils.cuda_timing import event_ms as time_ms, rotating
-from hexl_fpga_tpu_torch.utils.profile_keyswitch import _device_table, wall_ms
+from hexl_fpga_tpu_torch.utils.cuda_timing import (
+    device_table, event_ms as time_ms, rotating, wall_ms,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 VECTOR = os.path.join(HERE, "tests", "testdata", "16384_6_7_7_2_0.json.gz")
@@ -2789,7 +2790,7 @@ def projection_block(paths, smi):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         _, wall = wall_ms(PROJECTION_LATER["body"])
-    alpha = _device_table(prof, wall)["ntt_kernels_share_of_busy"]
+    alpha = device_table(prof, wall)["ntt_kernels_share_of_busy"]
     inputs = {
         "t1_ks_ms": paths["device_path"]["build_ms_per_batch"]["default"],
         "t1_hoisted_ms": paths["device_path"]["hoisted_apply_ms"],

@@ -11,6 +11,12 @@
 
 Each warms up with one call first.  All need a CUDA device; `rotating`
 feeds them inputs from device memory.
+
+For a whole body or call sequence: `wall_ms` times one call between two
+synchronises; from a torch.profiler the caller ran, `device_rows` gives the
+device time by kernel or copy name, `device_busy_ms` the union of their
+spans, and `device_table` both against the window, with the NTT kernels'
+share of busy time.
 """
 
 from __future__ import annotations
@@ -117,3 +123,66 @@ def graph_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / (3 * reps)
+
+
+NTT_KERNELS = ("ntt_fwd_kernel", "ntt_inv_kernel", "ntt_fwd_tail_kernel",
+               "ntt_fwd_mac_kernel")
+
+
+def wall_ms(fn):
+    """(fn()'s result, host milliseconds of the call between two
+    synchronises)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _device_events(prof):
+    """(name, device microseconds, count) of every kernel and copy row."""
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or getattr(ev, "cuda_time_total", 0)
+        # kernels and copies only: operator rows repeat their kernels' time
+        if us and str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            yield ev.key.split("(")[0][:90], us, ev.count  # no argument list
+
+
+def device_rows(prof) -> dict:
+    """Device milliseconds by kernel (or copy) name from a finished profile."""
+    rows = {}
+    for name, us, _ in _device_events(prof):
+        rows[name] = rows.get(name, 0.0) + us / 1e3
+    return rows
+
+
+def device_busy_ms(prof) -> float:
+    """Milliseconds of a finished profile in which at least one kernel or
+    copy ran on the card: the union of their spans (the executor's copies
+    run on a stream of their own, so device rows overlap and their sum
+    counts the overlap twice)."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
+def device_table(prof, window_ms, top=8):
+    """Device time by kernel from a finished profile, against the window."""
+    rows = device_rows(prof)
+    busy = device_busy_ms(prof)
+    ntt = {k: v for k, v in rows.items() if kernel_base(k) in NTT_KERNELS}
+    rest = sorted(((v, k) for k, v in rows.items() if k not in ntt), reverse=True)
+    return {
+        "window_ms": window_ms, "device_busy_ms": busy,
+        "device_time_sum_ms": sum(rows.values()),
+        "device_idle_share": 1 - busy / window_ms,
+        "launches": sum(count for _, _, count in _device_events(prof)),
+        "ntt_kernels_ms": ntt,
+        "ntt_kernels_share_of_busy": sum(ntt.values()) / busy,
+        "largest_other_ms": {k: v for v, k in rest[:top]},
+    }

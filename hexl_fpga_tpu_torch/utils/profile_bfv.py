@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from hexl_fpga_tpu_torch.ops import nt, rns_behz, rns_behz_cuda, twiddles, word64 as w
-from hexl_fpga_tpu_torch.utils.profile_keyswitch import _device_table, wall_ms
+from hexl_fpga_tpu_torch.utils.cuda_timing import device_table, wall_ms
 
 # bench.py's BEHZ cell
 N, K, BITS, T, BATCH = 16384, 6, 51, 65537, 8
@@ -55,7 +55,7 @@ def main() -> int:
             with torch.profiler.profile(activities=acts) as prof:
                 _, window = wall_ms(fn)
             print(json.dumps({f"batch_{B}_{name}": {"wall_ms": ms,
-                                                    **_device_table(prof, window)}}),
+                                                    **device_table(prof, window)}}),
                   flush=True)
     return 0
 

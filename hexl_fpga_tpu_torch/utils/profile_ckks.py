@@ -26,7 +26,7 @@ from hexl_fpga_tpu_torch.integrations import ckks
 from hexl_fpga_tpu_torch.integrations.ckks import (
     MATVEC_DIAGONALS, MATVEC_N1, SEAL_BITS, SEAL_N, SEAL_SCALE, seal_moduli,
 )
-from hexl_fpga_tpu_torch.utils.profile_keyswitch import _device_table, wall_ms
+from hexl_fpga_tpu_torch.utils.cuda_timing import device_table, wall_ms
 
 
 def main() -> int:
@@ -61,7 +61,7 @@ def main() -> int:
             _, ms = wall_ms(fn)
         with torch.profiler.profile(activities=acts) as prof:
             _, window = wall_ms(fn)
-        print(json.dumps({name: {"wall_ms": ms, **_device_table(prof, window)}}),
+        print(json.dumps({name: {"wall_ms": ms, **device_table(prof, window)}}),
               flush=True)
     return 0
 

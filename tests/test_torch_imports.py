@@ -21,17 +21,14 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.runtime.executors", "hexl_fpga_tpu_torch.runtime.scheduler",
     "hexl_fpga_tpu_torch.utils.debug", "hexl_fpga_tpu_torch.utils.keycache",
     "hexl_fpga_tpu_torch.utils.vectors",
-    "hexl_fpga_tpu_torch.utils.profile_keyswitch",
-    "hexl_fpga_tpu_torch.utils.profile_paths",
     "hexl_fpga_tpu_torch.utils.cuda_timing",
-    "hexl_fpga_tpu_torch.utils.sweep_row_split",
     "hexl_fpga_tpu_torch.utils.sass_count",
     "hexl_fpga_tpu_torch.utils.cpp_rates",
     "hexl_fpga_tpu_torch.utils.ablate_kernels",
     "hexl_fpga_tpu_torch.ops.wirepack",
     "hexl_fpga_tpu_torch.integrations.ckks",
     "hexl_fpga_tpu_torch.integrations.bgv",
-    "hexl_fpga_tpu_torch.utils.profile_ckks",
+    "hexl_fpga_tpu_torch.utils.profile_ckks", "hexl_fpga_tpu_torch.utils.profile_bfv",
     "hexl_fpga_tpu_torch.utils.graph",
     "hexl_fpga_tpu_torch.ops.rns_behz",
     "hexl_fpga_tpu_torch.ops.rns_behz_cuda",
@@ -41,7 +38,6 @@ PORT_MODULES = [
     "hexl_fpga_tpu_torch.parallel.projection",
     "hexl_fpga_tpu_torch.parallel.sharded",
     "hexl_fpga_tpu_torch.parallel.rank_ops",
-    "hexl_fpga_tpu_torch.utils.probe_gloo",
     "hexl_fpga_tpu_torch.utils.fuzz_card",
     "hexl_fpga_tpu_torch.utils.sanitize_kernels",
 ]

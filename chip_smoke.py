@@ -30,7 +30,9 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      (checked against its expected_output), the rest operands drawn from a
      numpy seed; EVERY op is checked against the golden model, and the launch
      counters must read 7 forward / 7 inverse / 6 tail / 7 MAC launches per
-     batch;
+     batch (a key's first dispatch runs eager, its second captures a CUDA
+     graph, and the counted pass replays both batches' graph: a replay
+     counts the kernels it runs; `keyswitch_cuda.GRAPHS` counts the bodies);
      then `copy_overlap` (the executor's copy stream): 96 KeySwitch ops in
      3 batches of 32 through the API with the executor's timing events on,
      every op against the device context's own batch (held to the golden
@@ -172,7 +174,8 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      the golden model; the batches each worker served (both must serve),
      each executor's device, api_ops_per_s beside the NUM_DEV = 1 rates,
      and the launches summed over both workers, equal to the batches times
-     the per-batch counts (no scaling claim: one card).
+     the per-batch counts, KeySwitch's replayed from the one context's
+     graphs by both workers (no scaling claim: one card).
 
 compute-sanitizer ships with the card's toolkit but refuses its device
 ("Device not supported"; a plain CUDA program's cudaMalloc then fails), so
@@ -901,6 +904,19 @@ def drive_api(vec, ops):
     return results, time.perf_counter() - t0
 
 
+def keyswitch_launches(L, batches=1):
+    """The default schedule's kernel launches for `batches` KeySwitch bodies."""
+    return {"ntt_fwd": (L + 1) * batches, "ntt_inv": (L + 1) * batches,
+            "ntt_fwd_tail": L * batches, "keyswitch_mac": (L + 1) * batches}
+
+
+def keyswitch_bodies(before):
+    """dispatch_batch's bodies since `before`, a copy of keyswitch_cuda.GRAPHS:
+    (served, counts), where an eager body or a replay serves a batch."""
+    d = {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()}
+    return d["eager"] + d["replays"], d
+
+
 def golden_ops(vec):
     """The main path's WORKSIZE operand pairs and their golden outputs (the
     wire_pack phase drives the same ops); returns (ops, want, seconds)."""
@@ -926,7 +942,9 @@ def main_path(vec, device, rehearse, ops, want, golden_s):
     # a first pass stages keys and tables; the second is the counted one
     first, _ = drive_api(vec, ops)
     ntt_cuda.reset_launch_counts()
+    graphs = dict(keyswitch_cuda.GRAPHS)
     results, wall_s = drive_api(vec, ops)
+    served, graphs = keyswitch_bodies(graphs)
     launches = {k: ntt_cuda.LAUNCHES[k]
                 for k in ("ntt_fwd", "ntt_inv", "ntt_fwd_tail", "keyswitch_mac")}
     assert sum(ntt_cuda.LAUNCHES.values()) == sum(launches.values())
@@ -936,18 +954,20 @@ def main_path(vec, device, rehearse, ops, want, golden_s):
         np.testing.assert_array_equal(first[i], exp, err_msg=f"first pass, op {i}")
         np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
     batches = WORKSIZE // BATCH
-    expected = {"ntt_fwd": (L + 1) * batches, "ntt_inv": (L + 1) * batches,
-                "ntt_fwd_tail": L * batches, "keyswitch_mac": (L + 1) * batches}
+    assert served == batches, (graphs, batches)
+    expected = keyswitch_launches(L, batches)
     if rehearse:
         assert launches == dict.fromkeys(expected, 0), launches
     else:
+        # the first pass ran the key eager, then captured: this one replays
+        assert graphs["replays"] == batches, graphs
         assert launches == expected, (launches, expected)
 
     out = {
         "config": vec.config_name, "ops": WORKSIZE, "batch": BATCH,
         "ops_checked_vs_golden": len(want),
         "ops_checked_vs_frozen_vector": N_VECTOR_OPS,
-        "golden_s": golden_s, "launches": launches,
+        "golden_s": golden_s, "launches": launches, "graphs": graphs,
     }
     if not rehearse:
         out["api_ops_per_s"] = WORKSIZE / wall_s
@@ -1000,19 +1020,20 @@ def copy_overlap_path(vec, device, rehearse):
     executor = scheduler.pool().devices[0].executor
     executor.timeline = []
     ntt_cuda.reset_launch_counts()
+    graphs = dict(keyswitch_cuda.GRAPHS)
     results, wall_s = drive_api(vec, ops)
+    served, graphs = keyswitch_bodies(graphs)
     launches = {k: v for k, v in ntt_cuda.LAUNCHES.items() if v}
     hexl.release_FPGA_resources()
 
     for i, exp in enumerate(want):
         np.testing.assert_array_equal(results[i], exp, err_msg=f"op {i}")
-    expected = {} if rehearse else {"ntt_fwd": (L + 1) * OVERLAP_BATCHES,
-                                    "ntt_inv": (L + 1) * OVERLAP_BATCHES,
-                                    "ntt_fwd_tail": L * OVERLAP_BATCHES,
-                                    "keyswitch_mac": (L + 1) * OVERLAP_BATCHES}
+    assert served == OVERLAP_BATCHES, graphs
+    expected = {} if rehearse else keyswitch_launches(L, OVERLAP_BATCHES)
     assert launches == expected, (launches, expected)
     out = {"config": vec.config_name, "ops": len(ops), "batch": BATCH,
-           "ops_checked_vs_device_batch": len(ops), "launches": launches}
+           "ops_checked_vs_device_batch": len(ops), "launches": launches,
+           "graphs": graphs}
     if rehearse:  # the CPU has no streams
         assert executor.timeline == []
         return out
@@ -1835,8 +1856,10 @@ def bfv_path(vec, device, rehearse):
     host_s["behz_oracle_each"] = (time.perf_counter() - t0) / len(BEHZ_ORACLE_ROWS)
     per_multiply = {"eager": launches_of(lambda: behz.multiply_tensors(x1, x2)),
                     "graph_replay": launches_of(lambda: program(x1, x2))}
+    # a replay counts the kernels it runs, as the eager multiply does
     assert per_multiply == ({"eager": {}, "graph_replay": {}} if rehearse else
-                            {"eager": behz_launches(BEHZ_K), "graph_replay": {}}), per_multiply
+                            {"eager": behz_launches(BEHZ_K),
+                             "graph_replay": behz_launches(BEHZ_K)}), per_multiply
 
     t0 = time.perf_counter()
     ctx = bfv.BfvContext(n, vec.moduli, t, seed=21)
@@ -1865,9 +1888,13 @@ def bfv_path(vec, device, rehearse):
     launches = rank_ops.counts()
     rotate_launches = launches_of(lambda: ev.rotate(ev.stage(cts[0]), 1))
     if not rehearse:
-        want = dict(behz_launches(BEHZ_K))
-        for k, v in rotate_launches.items():
-            want[k] = want.get(k, 0) + v
+        # the eager multiply and its replay, multiply_rns's replay at the
+        # context's level, the rotation
+        want = {}
+        for part in (behz_launches(BEHZ_K), behz_launches(BEHZ_K),
+                     behz_launches(cts[0].level + 1), rotate_launches):
+            for k, v in part.items():
+                want[k] = want.get(k, 0) + v
         assert launches == want, (launches, want)
     assert torch.equal(steps["behz_eager"], eager) and torch.equal(steps["behz_replay"], eager)
 
@@ -2073,18 +2100,23 @@ def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
 
     def run(name, fn, op, count, per_batch, batch, abi="v2", bodies=None):
         """fn() once with every count at 0; the run's launches (per_batch
-        times the served batches, or times `bodies`), served batches and key
-        uploads, asserted; returns fn's value."""
+        times the served batches, or times `bodies`), served batches (for
+        KeySwitch, dispatch_batch's bodies too) and key uploads, asserted;
+        returns fn's value."""
         rt.backend_stats(clear=True)
         rank_ops.reset_counts()
         keycache.UPLOADS["key_sets"] = 0
+        graphs = dict(keyswitch_cuda.GRAPHS)
         value = fn()
         launches, stats = rank_ops.counts(), rt.backend_stats(clear=True)
+        served, graphs = keyswitch_bodies(graphs)
         assert stats["declines"] == [] and stats["errors"] == [], stats
         batches = stats["batches"].get(abi, {}).get(op, 0)
         assert stats["batches"] == {abi: {op: batches}}, stats
         assert stats["ops"] == {abi: {op: count}}, stats
         assert batches >= math.ceil(count / batch), (batches, count, batch)
+        if op == "KEYSWITCH":
+            assert served == (bodies or batches), (name, graphs, bodies or batches)
         expected = {} if rehearse else {
             k: b * (bodies or batches) for k, b in per_batch.items()}
         assert launches == expected, (name, launches, expected)
@@ -2094,11 +2126,9 @@ def cpp_path(vec, device, rehearse, ops, want, python_rates, build_s):
                              "worker_threads": stats["threads"],
                              "launches": launches,
                              "key_uploads": keycache.UPLOADS["key_sets"]}
+        if op == "KEYSWITCH":
+            out["runs"][name]["graphs"] = graphs
         return value
-
-    def keyswitch_launches(L):
-        return {"ntt_fwd": L + 1, "ntt_inv": L + 1, "ntt_fwd_tail": L,
-                "keyswitch_mac": L + 1}
 
     try:
         # 1. the main path's 64 ops, under v2 then under v1 alone: a fresh
@@ -2734,7 +2764,9 @@ def multi_worker_path(vec, device, rehearse, ops, want, single_rates):
                 d.served.clear()
             ntt_cuda.reset_launch_counts()
             dyadic_cuda.reset_launch_counts()
+            graphs = dict(keyswitch_cuda.GRAPHS)
             counted, secs = everything()
+            ks_served, graphs = keyswitch_bodies(graphs)
             launches = {k: v for k, v in {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES}.items()
                         if v}
             served = [dict(d.served) for d in pool.devices]
@@ -2755,9 +2787,10 @@ def multi_worker_path(vec, device, rehearse, ops, want, single_rates):
     batches = {op: sum(s.get(op, 0) for s in served) for op in
                (scheduler.KEYSWITCH, scheduler.DYADIC_MULTIPLY, scheduler.NTT, scheduler.INTT)}
     ks_b = batches[scheduler.KEYSWITCH]
-    expected = {"ntt_fwd": (L + 1) * ks_b + batches[scheduler.NTT],
-                "ntt_inv": (L + 1) * ks_b + batches[scheduler.INTT],
-                "ntt_fwd_tail": L * ks_b, "keyswitch_mac": (L + 1) * ks_b,
+    assert ks_served == ks_b, (graphs, batches)
+    ks = keyswitch_launches(L, ks_b)
+    expected = {**ks, "ntt_fwd": ks["ntt_fwd"] + batches[scheduler.NTT],
+                "ntt_inv": ks["ntt_inv"] + batches[scheduler.INTT],
                 "dyadic_mul": batches[scheduler.DYADIC_MULTIPLY]}
     assert launches == ({} if rehearse else expected), (launches, expected)
 
@@ -2766,7 +2799,8 @@ def multi_worker_path(vec, device, rehearse, ops, want, single_rates):
            "ops": {"keyswitch": len(ops), "dyadic": WORKSIZE, "ntt": count, "intt": count},
            "batch": {"keyswitch": BATCH, "dyadic": BATCH, "ntt": batch},
            "ops_checked_vs_golden": 2 * (len(ops) + WORKSIZE + 2 * count),
-           "launches": launches, "not_scaling": "two workers share one card"}
+           "launches": launches, "keyswitch_graphs": graphs,
+           "not_scaling": "two workers share one card"}
     if not rehearse:
         ks_s, dy_s, f_s, i_s = secs
         out["api_ops_per_s"] = {"keyswitch": len(ops) / ks_s, "dyadic": WORKSIZE / dy_s,

@@ -29,24 +29,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from . import _build, word64 as w
+from . import _build, ntt_cuda, word64 as w
 
 # launches since the last reset; the wrapper adds one exactly where it
-# launches its kernel
+# launches its kernel (ntt_cuda.count_launch, under its lock)
 LAUNCHES = {"dyadic_mul": 0}
-_launches_lock = threading.Lock()  # NUM_DEV > 1: several workers launch
 
 KERNEL_SOURCE = "dyadic_kernels.cu"
 
 
 def reset_launch_counts() -> None:
-    with _launches_lock:
+    with ntt_cuda._launches_lock:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
 
@@ -159,8 +157,7 @@ def dyadic_multiply(op1: torch.Tensor, op2: torch.Tensor,
             B, M, n, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"dyadic_mul: kernel launch failed (cudaError {err})")
-    with _launches_lock:
-        LAUNCHES["dyadic_mul"] += 1
+    ntt_cuda.count_launch(LAUNCHES, "dyadic_mul")
     return out
 
 

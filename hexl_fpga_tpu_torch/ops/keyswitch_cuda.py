@@ -52,6 +52,31 @@ import numpy as np
 import torch
 
 from . import galois_cuda, nt, ntt_cuda, twiddles, wirepack, word64 as w
+from ..utils.graph import GraphProgram, GraphQueue
+
+# dispatch_batch's bodies on its unpacked route, by how they ran: captured
+# into a CUDA graph (each also replayed), replayed, or launched one by one
+# (a key's first dispatch, and every one off the card); counted across the
+# process, as keycache.UPLOADS counts key uploads
+GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
+_graphs_count_lock = threading.Lock()
+
+
+def _count(kind: str) -> None:
+    with _graphs_count_lock:
+        GRAPHS[kind] += 1
+
+
+class _BodyEntry:
+    """dispatch_batch's record of one (B, key set, msf): the key and precon
+    tensors, its dispatches, its program once captured, whether a thread is
+    capturing it, and whether the program has replayed since its capture."""
+
+    __slots__ = ("keys", "kp", "uses", "program", "capturing", "replayed")
+
+    def __init__(self, keys, kp):
+        self.keys, self.kp = keys, kp
+        self.uses, self.program, self.capturing, self.replayed = 0, None, False, False
 
 
 class KeySwitchContext:
@@ -106,6 +131,13 @@ class KeySwitchContext:
         # context (NUM_DEV > 1, or the C++ runtime's workers): one stages a
         # key set while the others wait for it
         self._keys_lock = threading.Lock()
+        # dispatch_batch's graphs of the body (_dispatch_body), by batch size,
+        # staged key set and modswitch factors; None runs every body eager
+        self._graph_program = GraphProgram if self.device.type == "cuda" else None
+        self._graphs: OrderedDict = OrderedDict()
+        self._graphs_lock = threading.Lock()
+        self._graph_queue = GraphQueue(self.device)
+        self._need = 2  # the dispatch of a key that captures (_dispatch_body)
         assert self.K - 1 >= self.L, "special modulus must not be a decomp modulus"
         # 2n-th roots: derived from the caller's tables when provided
         # (fwd[bit_reverse(1)] = psi), else the canonical minimal root
@@ -285,7 +317,8 @@ class KeySwitchContext:
         e = self._intt2(engine_acc(self.K - 1, False))
         sigma = self._sigma(e) if self.plain_modulus is not None else None
 
-        out = torch.empty_like(res)
+        # contiguous whatever res's strides (a graph's res is limb-major)
+        out = torch.empty(res.shape, dtype=res.dtype, device=res.device)
         for j in range(self.L):
             out[:, :, j, :] = self._tail_j(j, e, engine_acc(j, True), res, msf,
                                            sigma)
@@ -420,8 +453,68 @@ class KeySwitchContext:
                 k_switch_keys, modswitch_factors)
         r, t = self._handles(results, t_targets)
         keys, kp = self.device_keys(k_switch_keys)
-        return self._build(t.data, keys, kp, r.data,
-                           self.prepare_msf4(modswitch_factors))
+        return self._dispatch_body(t.data, keys, kp, r.data,
+                                   self.prepare_msf4(modswitch_factors))
+
+    def _dispatch_body(self, t, keys, kp, res, msf):
+        """_build for dispatch_batch: on the card a key's first dispatches
+        run eager, its `_need`-th captures the body into a GraphProgram and
+        later ones replay it.  A key is (B, the staged key set by identity,
+        msf, whose rows the capture bakes in as kernel scalars); its entry
+        holds its key tensors, so no identity is reused while it lives and a
+        graph never reads a set the key cache has freed.  At most
+        KEY_CACHE_SLOTS entries, the least recently used leaving first; the
+        graphs share their context's GraphQueue.  The capture runs outside
+        the cache's lock: meanwhile the key's other dispatches run eager.
+
+        `_need` is the reuse the context has measured: 2 at first (a key's
+        second dispatch captures), one more each time a graph leaves the
+        cache without having replayed after its capture, one less (down to
+        2) each time a graph replays for the first time.  So traffic whose
+        keys come back only after others have pushed them out (batch sizes
+        that change every call, more key sets than the cache holds) stops
+        paying for captures it never reuses, and a key that then repeats
+        still gets its graph.
+
+        The static inputs hold the operands limb-major, (L, B, n) and
+        (L, comp, B, n): _build's per-limb slices of them are contiguous, so
+        the copy-in takes the place of its per-limb copies."""
+        limb_major = (t.transpose(0, 1), res.permute(2, 1, 0, 3))
+        program = capture = None
+        if self._graph_program is not None:
+            key = (t.shape[0], id(keys), id(kp), msf.tobytes())
+            with self._graphs_lock:
+                entry = self._graphs.get(key)
+                if entry is None:
+                    entry = self._graphs[key] = _BodyEntry(keys, kp)
+                self._graphs.move_to_end(key)
+                entry.uses += 1
+                if entry.program is not None:
+                    program = entry.program
+                    if not entry.replayed:
+                        entry.replayed = True
+                        self._need = max(2, self._need - 1)
+                elif not entry.capturing and entry.uses >= self._need:
+                    entry.capturing, capture = True, entry
+                while len(self._graphs) > self.KEY_CACHE_SLOTS:
+                    _, old = self._graphs.popitem(last=False)
+                    if (old.program is not None or old.capturing) and not old.replayed:
+                        self._need += 1
+        if capture is not None:
+            def run(tl, rl):
+                return self._build(tl.transpose(0, 1), keys, kp,
+                                   rl.permute(2, 1, 0, 3), msf)
+
+            program = self._graph_program(run, *limb_major, queue=self._graph_queue,
+                                          warm=False, holds=(keys, kp))
+            with self._graphs_lock:
+                capture.program, capture.capturing = program, False
+            _count("captures")
+        if program is None:
+            _count("eager")
+            return self._build(t, keys, kp, res, msf)
+        _count("replays")
+        return program(*limb_major)
 
     # -- 52-bit wire-packed transport (HEXL_TPU_WIRE_PACK=1) -----------------
 

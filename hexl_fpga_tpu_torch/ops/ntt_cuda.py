@@ -99,6 +99,36 @@ def thread_launches():
         _this_thread.counts = None
 
 
+def count_launch(table: dict, name: str, times: int = 1) -> None:
+    """Count `times` launches of `name` in `table` (this module's LAUNCHES
+    or dyadic_cuda's) and, for this module's kernels, in this thread's
+    thread_launches dict.  While this thread captures a CUDA graph nothing
+    runs: the launch goes into the capture's record (captured_launches)
+    instead, and each replay of the graph counts it (utils/graph.py)."""
+    record = getattr(_this_thread, "capture", None)
+    if record is not None:
+        record.append((table, name))
+        return
+    with _launches_lock:
+        table[name] += times
+    mine = getattr(_this_thread, "counts", None)
+    if mine is not None and table is LAUNCHES:
+        mine[name] += times
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Record this thread's launches as (table, name) pairs into the list it
+    yields, in place of counting them: a graph capture's kernels run only
+    when the graph replays."""
+    record = []
+    _this_thread.capture = record
+    try:
+        yield record
+    finally:
+        _this_thread.capture = None
+
+
 # ---------------------------------------------------------------------------
 # per-modulus tables
 # ---------------------------------------------------------------------------
@@ -458,11 +488,7 @@ def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
         err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    with _launches_lock:
-        LAUNCHES[name] += 1
-    mine = getattr(_this_thread, "counts", None)
-    if mine is not None:
-        mine[name] += 1
+    count_launch(LAUNCHES, name)
 
 
 # ---------------------------------------------------------------------------

@@ -10,9 +10,12 @@ vector; the entry points are the port's (`ntt_cuda`,
 `keyswitch_cuda.get_context`, the API), each on the card.
 """
 
+import gc
 import glob
 import os
+import threading
 import warnings
+import weakref
 
 import numpy as np
 import pytest
@@ -200,3 +203,205 @@ def test_api_num_dev_2_hw(runtime):
             hexl._NTT(b, t.fwd, t.fwd_precon, q, n)
     assert hexl._NTTCompleted()
     np.testing.assert_array_equal(np.stack(bufs), golden.fwd_ntt(src, q, t))
+
+
+# -- dispatch_batch's CUDA graphs of the body --------------------------------
+
+
+def _bench_context():
+    """A fresh context at the benchmark's vector, 16384_6_7_7_2."""
+    files = sorted(glob.glob(os.path.join(TESTDATA, "16384_6_7_7_2_*.json*")))
+    vec = vectors.load_json(files[0])
+    ctx = keyswitch_cuda.KeySwitchContext(
+        vec.coeff_count, vec.decomp_modulus_size, vec.key_modulus_size,
+        vec.rns_modulus_size, 2, vec.moduli, vec.twiddle_factors)
+    return vec, ctx
+
+
+def _staged_ops(vec, ctx, B, seed):
+    """B random (accumulator, target) pairs as device handles."""
+    rng = np.random.default_rng(seed)
+    L, n = ctx.L, ctx.n
+    rs = np.stack([np.concatenate([rng.integers(0, vec.moduli[j % L], size=n,
+                                                dtype=np.uint64)
+                                   for j in range(2 * L)]) for _ in range(B)])
+    ts = np.stack([np.concatenate([rng.integers(0, vec.moduli[j], size=n,
+                                                dtype=np.uint64)
+                                   for j in range(L)]) for _ in range(B)])
+    return ctx.stage_ciphertext(rs), ctx.stage_target(ts)
+
+
+def _eager(ctx, vec, r, t):
+    keys, kp = ctx.device_keys(vec.key_vectors)
+    return ctx._build(t.data, keys, kp, r.data, ctx.prepare_msf4(vec.modswitch_factors))
+
+
+def _program(ctx):
+    (prog,) = [e.program for e in ctx._graphs.values() if e.program is not None]
+    return prog
+
+
+@pytest.mark.parametrize("B", [1, 32])
+def test_dispatch_graph_replay_equals_eager_build_hw(B):
+    """At the benchmark vector: the first dispatch eager, the second captures,
+    the third replays; each equal to eager _build bit for bit, and each
+    counting the body's 7 / 7 / 6 / 7 launches: the kernels that ran."""
+    vec, ctx = _bench_context()
+    r, t = _staged_ops(vec, ctx, B, seed=B)
+    want = _eager(ctx, vec, r, t)
+    before = dict(keyswitch_cuda.GRAPHS)
+    L = ctx.L
+    body = {**dict.fromkeys(ntt_cuda.LAUNCHES, 0), "ntt_fwd": L + 1,
+            "ntt_inv": L + 1, "ntt_fwd_tail": L, "keyswitch_mac": L + 1}
+    for _ in range(3):
+        launched = dict(ntt_cuda.LAUNCHES)
+        got = ctx.dispatch_batch(r, t, vec.key_vectors, vec.modswitch_factors)
+        assert got.is_contiguous() and torch.equal(got, want)
+        assert {k: v - launched[k] for k, v in ntt_cuda.LAUNCHES.items()} == body
+    assert {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()} == {
+        "captures": 1, "replays": 2, "eager": 1}
+    assert _program(ctx).graph is not None
+
+
+def test_dispatch_graph_outlives_its_key_set_in_the_cache_hw():
+    """Nine other key sets push the captured set out of the key LRU and the
+    cache frees it; the graph holds its own tensors and replays, over
+    memory the allocator has handed out again, to the same bits."""
+    vec, ctx = _bench_context()
+    r, t = _staged_ops(vec, ctx, 32, seed=5)
+    want = _eager(ctx, vec, r, t)
+    for _ in range(2):
+        ctx.dispatch_batch(r, t, vec.key_vectors, vec.modswitch_factors)
+    first = weakref.ref(ctx.device_keys(vec.key_vectors)[0])
+    for s in range(9):
+        ctx.device_keys([np.roll(k, s + 1) for k in vec.key_vectors])
+    assert ctx.device_keys(vec.key_vectors)[0] is not first()  # re-staged
+    assert first() is not None  # held by the graph alone
+    torch.cuda.empty_cache()
+    junk = torch.full((256 << 20,), -1, dtype=torch.int64, device="cuda")
+    got = _program(ctx)(t.data.transpose(0, 1), r.data.permute(2, 1, 0, 3))
+    assert torch.equal(got, want)
+    del junk
+
+
+def test_dispatch_graph_captures_again_after_its_pool_emptied_hw():
+    """Every graph of the context dropped, the key captures anew into the
+    context's pool, which outlives its programs, and replays to the same
+    bits."""
+    vec, ctx = _bench_context()
+    r, t = _staged_ops(vec, ctx, 8, seed=7)
+    want = _eager(ctx, vec, r, t)
+    before = dict(keyswitch_cuda.GRAPHS)
+    for _ in range(2):
+        for _ in range(3):
+            got = ctx.dispatch_batch(r, t, vec.key_vectors, vec.modswitch_factors)
+            assert torch.equal(got, want)
+        ctx._graphs.clear()
+        gc.collect()
+        torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()} == {
+        "captures": 2, "replays": 4, "eager": 2}
+
+
+def test_dispatch_graph_reads_only_what_it_staged_hw(monkeypatch):
+    """Once captured, the program looks nothing up: it replays with
+    device_keys refused, to the same bits."""
+    vec, ctx = _bench_context()
+    r, t = _staged_ops(vec, ctx, 32, seed=6)
+    want = _eager(ctx, vec, r, t)
+    for _ in range(2):
+        ctx.dispatch_batch(r, t, vec.key_vectors, vec.modswitch_factors)
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the program looked a key set up in the cache")
+
+    monkeypatch.setattr(ctx, "device_keys", refused)
+    got = _program(ctx)(t.data.transpose(0, 1), r.data.permute(2, 1, 0, 3))
+    assert torch.equal(got, want)
+
+
+def test_dispatch_graph_two_threads_on_one_context_hw():
+    """Two threads, each on a stream of its own, dispatch 100 batches each
+    on one context: one thread batches of 4, the other batches of 4 and 8 in
+    turn, so one graph's static inputs are shared and two graphs share the
+    context's memory pool.  Every result equals eager _build."""
+    vec, ctx = _bench_context()
+    inputs = {"a": [_staged_ops(vec, ctx, 4, seed=10)],
+              "b": [_staged_ops(vec, ctx, 4, seed=11), _staged_ops(vec, ctx, 8, seed=12)]}
+    want = {k: [_eager(ctx, vec, r, t) for r, t in v] for k, v in inputs.items()}
+    got = {k: [] for k in inputs}
+    errors = []
+
+    def worker(name):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for i in range(100):
+                    j = i % len(inputs[name])
+                    r, t = inputs[name][j]
+                    got[name].append((j, ctx.dispatch_batch(
+                        r, t, vec.key_vectors, vec.modswitch_factors)))
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in inputs]
+    before = dict(keyswitch_cuda.GRAPHS)
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    assert all(len(v) == 100 for v in got.values())
+    for name, outs in got.items():
+        for i, (j, out) in enumerate(outs):
+            assert torch.equal(out, want[name][j]), (name, i)
+    d = {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()}
+    assert d["captures"] == 2 and d["replays"] + d["eager"] == 200, d
+
+
+def test_dispatch_graphs_evicted_under_two_threads_hw():
+    """Two threads, each on a stream of its own, cycle through five batch
+    sizes each, three dispatches a size in a row: ten keys on one context,
+    more than its KEY_CACHE_SLOTS, so graphs leave the cache while the other
+    thread's replays may still be pending, and their static inputs and keys
+    go back to the allocator.  Every result equals eager _build."""
+    vec, ctx = _bench_context()
+    sizes = {"a": [1, 2, 3, 4, 5], "b": [6, 7, 8, 9, 10]}
+    assert len(sizes["a"]) + len(sizes["b"]) > ctx.KEY_CACHE_SLOTS
+    inputs = {k: [_staged_ops(vec, ctx, B, seed=20 + B) for B in v] for k, v in sizes.items()}
+    want = {k: [_eager(ctx, vec, r, t) for r, t in v] for k, v in inputs.items()}
+    got = {k: [] for k in inputs}
+    errors = []
+
+    def worker(name):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream()):
+                for i in range(60):
+                    j = (i // 3) % len(inputs[name])
+                    r, t = inputs[name][j]
+                    got[name].append((j, ctx.dispatch_batch(
+                        r, t, vec.key_vectors, vec.modswitch_factors)))
+                    # allocations on this stream, which may take freed blocks
+                    torch.empty((1 << 20,), dtype=torch.int64, device="cuda").fill_(-1)
+                torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(k,)) for k in inputs]
+    before = dict(keyswitch_cuda.GRAPHS)
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors, errors
+    torch.cuda.synchronize()
+    for name, outs in got.items():
+        assert len(outs) == 60
+        for i, (j, out) in enumerate(outs):
+            assert torch.equal(out, want[name][j]), (name, i)
+    d = {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()}
+    assert d["captures"] > len(ctx._graphs) and d["replays"] + d["eager"] == 120, d
+    assert len(ctx._graphs) <= ctx.KEY_CACHE_SLOTS

@@ -2,15 +2,20 @@
 versions of the kernels) vs the reference's KeySwitchTpuContext (Pallas
 kernels in interpret mode) and vs the frozen vectors.  Tolerance: zero."""
 
+import gc
 import os
+import sys
+import threading
+import weakref
 
 import numpy as np
 import pytest
+import torch
 
 from hexl_fpga_tpu.ops import keyswitch_tpu
 from hexl_fpga_tpu.utils import vectors as jvectors
 from hexl_fpga_tpu_torch import convert
-from hexl_fpga_tpu_torch.ops import golden, keyswitch_cuda, ntt_cuda, word64 as w
+from hexl_fpga_tpu_torch.ops import dyadic_cuda, golden, keyswitch_cuda, ntt_cuda, word64 as w
 from hexl_fpga_tpu_torch.utils import vectors
 
 TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")
@@ -222,3 +227,248 @@ def test_cuda_request_without_cuda_raises(vec):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli, None)
     assert ntt_cuda.LAUNCHES["ntt_fwd"] == 0
+
+
+# -- dispatch_batch's graphs of the body ---------------------------------------
+
+
+class StubProgram:
+    """GraphProgram's stand-in on the CPU: it keeps contiguous static
+    inputs, as the captured graph does, and runs the composition on them."""
+
+    def __init__(self, run, *examples, queue=None, warm=True, holds=()):
+        self.run, self.queue, self.warm, self.holds = run, queue, warm, holds
+        self.ins = [x.clone(memory_format=torch.contiguous_format) for x in examples]
+        self.calls = 0
+
+    def __call__(self, *xs):
+        for static, x in zip(self.ins, xs):
+            static.copy_(x)
+        self.calls += 1
+        return self.run(*self.ins).clone()
+
+
+@pytest.fixture
+def graphed(vec):
+    """A CPU context whose dispatch_batch builds StubPrograms (made, in
+    order), and GRAPHS' counts from zero."""
+    c = keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli,
+                                        vec.twiddle_factors, device="cpu")
+    made = []
+
+    def factory(*args, **kwargs):
+        made.append(StubProgram(*args, **kwargs))
+        return made[-1]
+
+    c._graph_program = factory
+    for k in keyswitch_cuda.GRAPHS:
+        keyswitch_cuda.GRAPHS[k] = 0
+    return c, made
+
+
+def dispatch(c, rs, ts, keys, msf):
+    return w.to_u64_np(c.dispatch_batch(rs, ts, keys, msf)).reshape(rs.shape[0], -1)
+
+
+def test_dispatch_captures_on_a_keys_second_dispatch(vec, graphed):
+    """First dispatch eager, second captures and replays, later ones replay;
+    every result the eager body's bits."""
+    c, made = graphed
+    rs, ts = random_ops(vec, 3, seed=5)
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    want = c.run_batch(rs, ts, *keyed)
+    assert made == [] and keyswitch_cuda.GRAPHS == {"captures": 0, "replays": 0,
+                                                    "eager": 1}
+    for i in range(3):
+        np.testing.assert_array_equal(dispatch(c, rs, ts, *keyed), want)
+        assert len(made) == 1 and made[0].calls == i + 1
+    assert keyswitch_cuda.GRAPHS == {"captures": 1, "replays": 3, "eager": 1}
+    prog = made[0]
+    assert prog.queue is c._graph_queue and prog.warm is False
+    assert prog.holds == c.device_keys(vec.key_vectors)
+    # the static inputs are limb-major: (L, B, n) targets, (L, comp, B, n) results
+    assert [tuple(x.shape) for x in prog.ins] == [(2, 3, 1024), (2, 2, 3, 1024)]
+    assert all(x.is_contiguous() for x in prog.ins)
+
+
+@pytest.mark.parametrize("change", ["batch", "restaged_keys", "modswitch"])
+def test_dispatch_captures_anew_for_another_key(vec, graphed, change):
+    """Another B, a key set re-staged after an in-place mutation (as in
+    test_device_key_cache) or other modswitch factors is another graph: it
+    too runs eager once, then captures."""
+    c, made = graphed
+    keys = [np.array(k, dtype=np.uint64) for k in vec.key_vectors]
+    msf = list(vec.modswitch_factors)
+    rs, ts = random_ops(vec, 2, seed=6)
+    for _ in range(2):
+        dispatch(c, rs, ts, keys, msf)
+    assert len(made) == 1
+    if change == "batch":
+        rs, ts = rs[:1], ts[:1]
+    elif change == "restaged_keys":
+        keys[0][:] = (keys[0] + np.uint64(1)) % np.uint64(vec.moduli[0])
+    else:
+        msf[0] = (msf[0] + 1) % vec.moduli[0]
+    want = c.run_batch(rs, ts, keys, msf)  # eager: the new key's first dispatch
+    assert len(made) == 1
+    np.testing.assert_array_equal(dispatch(c, rs, ts, keys, msf), want)
+    assert len(made) == 2 and made[1].calls == 1
+    assert keyswitch_cuda.GRAPHS == {"captures": 2, "replays": 2, "eager": 2}
+
+
+def test_dispatch_graphs_are_lru_bounded(vec, graphed):
+    """At most KEY_CACHE_SLOTS entries; the least recently used leaves first,
+    and its program and static tensors are released."""
+    c, made = graphed
+    slots = c.KEY_CACHE_SLOTS
+    rs, ts = random_ops(vec, slots + 1, seed=7)
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    for B in range(1, slots + 2):
+        for _ in range(3):  # eager, capture, replay
+            dispatch(c, rs[:B], ts[:B], *keyed)
+    assert len(made) == slots + 1 and len(c._graphs) == slots
+    first = weakref.ref(made[0])
+    static = [weakref.ref(x) for x in made[0].ins]
+    made.clear()
+    gc.collect()
+    assert first() is None and all(s() is None for s in static)
+    # the newest, B = slots + 1, replays; the evicted B = 1 runs eager again
+    counts = dict(keyswitch_cuda.GRAPHS)
+    dispatch(c, rs, ts, *keyed)
+    dispatch(c, rs[:1], ts[:1], *keyed)
+    assert keyswitch_cuda.GRAPHS["eager"] == counts["eager"] + 1
+    assert keyswitch_cuda.GRAPHS["replays"] == counts["replays"] + 1
+    assert len(c._graphs) == slots
+
+
+def test_dispatch_graph_holds_its_keys_past_the_key_cache(vec, graphed):
+    """A graph replays raw pointers: its entry keeps the key and precon
+    tensors it was captured with alive after the key cache evicted them, and
+    replays to the same bits; the set's next dispatch, staged anew, is
+    another key."""
+    c, made = graphed
+    rs, ts = random_ops(vec, 2, seed=8)
+    msf = vec.modswitch_factors
+    keys = [np.array(k, dtype=np.uint64) for k in vec.key_vectors]
+    want = c.run_batch(rs, ts, keys, msf)
+    dispatch(c, rs, ts, keys, msf)
+    staged = [weakref.ref(x) for x in c.device_keys(keys)]
+    for s in range(c.KEY_CACHE_SLOTS):  # other key sets push it out
+        c.device_keys([np.roll(k, s + 1) for k in keys])
+    gc.collect()
+    assert all(x() is not None for x in staged)
+    assert c.device_keys(keys)[0] is not staged[0]()  # re-staged
+    prog = made[0]
+    np.testing.assert_array_equal(
+        w.to_u64_np(prog(*(torch.from_numpy(a.view(np.int64)) for a in (
+            ts.reshape(2, 2, 1024).transpose(1, 0, 2),
+            rs.reshape(2, 2, 2, 1024).transpose(2, 1, 0, 3))))).reshape(2, -1),
+        want)
+    np.testing.assert_array_equal(dispatch(c, rs, ts, keys, msf), want)
+    assert len(made) == 1  # the re-staged set: a new key, eager
+    assert keyswitch_cuda.GRAPHS["eager"] == 2
+
+
+def test_dispatch_off_the_card_is_eager(vec):
+    """A CPU context builds no graph: every dispatch counts as eager."""
+    c = keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli, None,
+                                        device="cpu")
+    assert c._graph_program is None
+    before = dict(keyswitch_cuda.GRAPHS)
+    for _ in range(3):
+        c.run(vec.input, vec.t_target_iter_ptr, vec.key_vectors,
+              vec.modswitch_factors)
+    assert keyswitch_cuda.GRAPHS == {**before, "eager": before["eager"] + 3}
+    assert len(c._graphs) == 0
+
+
+def test_dispatch_graph_cache_under_many_threads(vec, graphed):
+    """Twelve threads dispatch on one context, three batch sizes among them,
+    with the interpreter switching threads as often as it can: each key
+    captures once, every dispatch replays or runs eager, and every result is
+    the eager body's."""
+    c, made = graphed
+    rs, ts = random_ops(vec, 3, seed=9)
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    want = {B: c.run_batch(rs[:B], ts[:B], *keyed) for B in (1, 2, 3)}
+    for k in keyswitch_cuda.GRAPHS:
+        keyswitch_cuda.GRAPHS[k] = 0
+    c._graphs.clear()
+    wrong, errors = [], []
+
+    def worker(i):
+        try:
+            for j in range(3):
+                B = 1 + (i + j) % 3
+                if not np.array_equal(dispatch(c, rs[:B], ts[:B], *keyed), want[B]):
+                    wrong.append((i, j))
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(12)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert not errors and not wrong, (errors, wrong)
+    assert len(made) == 3
+    graphs = keyswitch_cuda.GRAPHS
+    # a key's dispatches while another thread captures it run eager
+    assert graphs["captures"] == 3 and graphs["eager"] >= 3, graphs
+    assert graphs["replays"] + graphs["eager"] == 12 * 3, graphs
+
+
+def test_dispatch_capture_waits_for_measured_reuse(vec, graphed):
+    """Graphs that leave the cache without a replay raise the dispatch on
+    which a key captures; a key that then repeats still captures, on that
+    dispatch, and its first replay lowers it again.  Every result is the
+    eager body's."""
+    c, made = graphed
+    plain = keyswitch_cuda.KeySwitchContext(1024, 2, 3, 3, 2, vec.moduli,
+                                            vec.twiddle_factors, device="cpu")
+    slots = c.KEY_CACHE_SLOTS
+    rs, ts = random_ops(vec, slots + 2, seed=10)
+    keyed = (vec.key_vectors, vec.modswitch_factors)
+    want = {B: plain.run_batch(rs[:B], ts[:B], *keyed) for B in range(1, slots + 3)}
+    for k in keyswitch_cuda.GRAPHS:
+        keyswitch_cuda.GRAPHS[k] = 0
+    for B in range(1, slots + 3):  # each key twice, then gone
+        for _ in range(2):
+            np.testing.assert_array_equal(dispatch(c, rs[:B], ts[:B], *keyed), want[B])
+    # B = slots + 1 and + 2 each pushed out an unreplayed graph
+    assert len(made) == slots and c._need == 4
+    assert keyswitch_cuda.GRAPHS == {"captures": slots, "replays": slots,
+                                     "eager": slots + 4}
+    B = slots + 2  # dispatched twice already: the fourth dispatch captures
+    np.testing.assert_array_equal(dispatch(c, rs[:B], ts[:B], *keyed), want[B])
+    assert len(made) == slots
+    np.testing.assert_array_equal(dispatch(c, rs[:B], ts[:B], *keyed), want[B])
+    assert len(made) == slots + 1 and c._need == 4
+    np.testing.assert_array_equal(dispatch(c, rs[:B], ts[:B], *keyed), want[B])
+    assert made[-1].calls == 2 and c._need == 3
+
+
+def test_launches_inside_a_capture_count_on_replay():
+    """A launch while this thread captures runs nothing: it goes into the
+    capture's record, not into LAUNCHES or the thread's own counts; each
+    replay counts the record (GraphProgram)."""
+    before = (dict(ntt_cuda.LAUNCHES), dict(dyadic_cuda.LAUNCHES))
+    with ntt_cuda.thread_launches() as mine:
+        with ntt_cuda.captured_launches() as record:
+            ntt_cuda.count_launch(ntt_cuda.LAUNCHES, "ntt_fwd")
+            ntt_cuda.count_launch(dyadic_cuda.LAUNCHES, "dyadic_mul")
+        assert (dict(ntt_cuda.LAUNCHES), dict(dyadic_cuda.LAUNCHES)) == before
+        assert record == [(ntt_cuda.LAUNCHES, "ntt_fwd"),
+                          (dyadic_cuda.LAUNCHES, "dyadic_mul")]
+        assert set(mine.values()) == {0}
+        ntt_cuda.count_launch(ntt_cuda.LAUNCHES, "ntt_fwd", 3)
+        ntt_cuda.count_launch(dyadic_cuda.LAUNCHES, "dyadic_mul", 2)
+    assert ntt_cuda.LAUNCHES["ntt_fwd"] == before[0]["ntt_fwd"] + 3
+    assert dyadic_cuda.LAUNCHES["dyadic_mul"] == before[1]["dyadic_mul"] + 2
+    assert mine == {**dict.fromkeys(mine, 0), "ntt_fwd": 3}

@@ -91,12 +91,14 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      multiply_relin, the GHS mod switch, rotate against the host BgvContext
      bit for bit, and a hoisted rotation, each decrypted exactly mod t; the
      kernels against their plain versions at this path's shapes,
- 10. drives `bfv_path`: BehzCuda, the BEHZ multiply, at the reference
-     benchmark's shape (n = 16384, six 51-bit primes, t = 65537, batch 8),
-     eager and replayed from its CUDA graph, bit for bit with each other and
-     with the host BehzTool on two batch rows; 3k + 1 ntt_inv, 2k + 1 ntt_fwd
-     and 1 dyadic_mul launches a multiply, none a replay; then a BfvContext
-     over the frozen vector's moduli (t = 65537): multiply_rns on the card
+ 10. drives `bfv_path`: a BfvContext over the frozen vector's moduli
+     (t = 65537) and its DeviceBfvEvaluator, at the shape of the benchmark's
+     cell bfv16384.behz_multiply (n = 16384, the six 52-bit decomp primes,
+     batch 8): the level's BehzCuda eager and the evaluator's multiply
+     (its CUDA graph replay), bit for bit with each other and with the host
+     BehzTool on two batch rows; 3k + 1 ntt_inv, 2k + 1 ntt_fwd and 1
+     dyadic_mul launches a multiply, counted for a replay too, and
+     rns_behz_cuda.GRAPHS counting the replays; multiply_rns on the card
      against the host tool, relinearize and mod_switch_to_next decrypted
      exactly, a rotation on DeviceCkksEvaluator against the host context,
      the noise budget; the kernels against their plain versions at the
@@ -1752,9 +1754,9 @@ def bgv_path(vec, device, rehearse):
 # phase 10: BFV at n = 16384, the BEHZ multiply as one CUDA graph
 # ---------------------------------------------------------------------------
 
-# the reference benchmark's BEHZ cell (`bench.py` bench_bfv_multiply): n =
-# 16384, six primes from generate_primes(6, 51, n), t = 65537, batch 8
-BEHZ_K, BEHZ_BITS, BEHZ_BATCH = 6, 51, 8
+# the benchmark's cell bfv16384.behz_multiply: the level of the frozen
+# vector's six decomp primes, t = 65537, batch 8 (bench.py's BEHZ batch)
+BEHZ_BATCH = 8
 BEHZ_ORACLE_ROWS = (0, BEHZ_BATCH - 1)  # batch rows held to the host BehzTool
 CHAIN_STEPS = 10
 
@@ -1811,15 +1813,18 @@ def check_behz_shapes(behz, device):
 
 
 def bfv_path(vec, device, rehearse):
-    """BFV on the card.  First the reference benchmark's BEHZ shape: BehzCuda
-    at batch 8 eager and replayed from its CUDA graph, bit for bit with each
-    other and, on two batch rows, with the host BehzTool; launches per
-    multiply (none for a replay).  Then a BfvContext over the frozen vector's
-    seven moduli, t = PLAIN_MODULUS: two encryptions, multiply_rns on the
-    card bit for bit against the host tool, relinearize and
-    mod_switch_to_next each decrypting exactly to z1 * z2 mod t, a rotation
-    on DeviceCkksEvaluator bit for bit against the host context and
-    decrypted exactly, the noise budget along the way.  Times by CUDA
+    """BFV on the card, at the shape of the benchmark's cell
+    bfv16384.behz_multiply: a BfvContext over the frozen vector's seven
+    moduli, t = PLAIN_MODULUS, and its DeviceBfvEvaluator.  First the BEHZ
+    multiply at batch 8 on the level of the six decomp moduli: the level's
+    BehzCuda eager and the evaluator's multiply (its CUDA graph replay), bit
+    for bit with each other and, on two batch rows, with the host BehzTool;
+    launches per multiply (counted for a replay as for the eager run), and
+    rns_behz_cuda.GRAPHS counting the evaluator's call as a replay.  Then two
+    encryptions, multiply_rns on the card bit for bit against the host tool,
+    relinearize and mod_switch_to_next each decrypting exactly to z1 * z2 mod
+    t, a rotation on DeviceCkksEvaluator bit for bit against the host context
+    and decrypted exactly, the noise budget along the way.  Times by CUDA
     events, the dependent-chain rate of `bench.py` (two of the three outputs
     feed the next multiply), peak device memory, the host's seconds."""
     n, t = vec.coeff_count, PLAIN_MODULUS
@@ -1832,21 +1837,29 @@ def bfv_path(vec, device, rehearse):
     host_s = {}
     rng = np.random.default_rng(19)
     t0 = time.perf_counter()
-    q = [int(p) for p in nt.generate_primes(BEHZ_K, BEHZ_BITS, n)]
-    tool = rns_behz.BehzTool(n, q, t)
-    tabs = [twiddles.ntt_tables(n, qi) for qi in q]
-    behz = rns_behz_cuda.BehzCuda(tool, tabs, device)
+    ctx = bfv.BfvContext(n, vec.moduli, t, seed=21)
+    host_s["context_and_relin_keys"] = time.perf_counter() - t0
+    bev = bfv.DeviceBfvEvaluator(ctx, device)
+    k = ctx.L
+    t0 = time.perf_counter()
+    tool, tabs = ctx._behz(k), ctx.tabs[:k]
+    behz = ctx._behz_cuda(k, device)
     host_s["behz_tool_and_staging"] = time.perf_counter() - t0
-    qcol = np.array(q, dtype=np.uint64).reshape(1, 1, BEHZ_K, 1)
-    c1, c2 = (rng.integers(0, 1 << 62, size=(BEHZ_BATCH, 2, BEHZ_K, n), dtype=np.uint64)
+    q = tool.q
+    qcol = np.array(q, dtype=np.uint64).reshape(1, 1, k, 1)
+    c1, c2 = (rng.integers(0, 1 << 62, size=(BEHZ_BATCH, 2, k, n), dtype=np.uint64)
               % qcol for _ in range(2))
-    x1, x2 = w.from_u64_np(c1, device), w.from_u64_np(c2, device)
+    x1, x2 = bev.stage(c1), bev.stage(c2)
     t0 = time.perf_counter()
     program = behz.program(BEHZ_BATCH)
     host_s["behz_capture"] = time.perf_counter() - t0
     assert (program.graph is None) == rehearse
     eager = behz.multiply_tensors(x1, x2)
-    replay = program(x1, x2)
+    graphs = dict(rns_behz_cuda.GRAPHS)
+    replay = bev.multiply(x1, x2)
+    counted = {key: rns_behz_cuda.GRAPHS[key] - v for key, v in graphs.items()}
+    assert counted == {"captures": 0, "replays": 0 if rehearse else 1,
+                       "eager": 1 if rehearse else 0}, counted
     assert torch.equal(eager, replay), "BEHZ multiply: eager vs graph replay"
     got = w.to_u64_np(replay)
     t0 = time.perf_counter()
@@ -1855,15 +1868,12 @@ def bfv_path(vec, device, rehearse):
                                       err_msg=f"BEHZ batch row {b} vs BehzTool")
     host_s["behz_oracle_each"] = (time.perf_counter() - t0) / len(BEHZ_ORACLE_ROWS)
     per_multiply = {"eager": launches_of(lambda: behz.multiply_tensors(x1, x2)),
-                    "graph_replay": launches_of(lambda: program(x1, x2))}
+                    "graph_replay": launches_of(lambda: bev.multiply(x1, x2))}
     # a replay counts the kernels it runs, as the eager multiply does
     assert per_multiply == ({"eager": {}, "graph_replay": {}} if rehearse else
-                            {"eager": behz_launches(BEHZ_K),
-                             "graph_replay": behz_launches(BEHZ_K)}), per_multiply
+                            {"eager": behz_launches(k),
+                             "graph_replay": behz_launches(k)}), per_multiply
 
-    t0 = time.perf_counter()
-    ctx = bfv.BfvContext(n, vec.moduli, t, seed=21)
-    host_s["context_and_relin_keys"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     ctx.galois_keys(1)
     host_s["rotation_keys"] = time.perf_counter() - t0
@@ -1877,7 +1887,7 @@ def bfv_path(vec, device, rehearse):
     # replay, multiply_rns on the context's level (its graph captured by the
     # first pass) and a rotation on the evaluator
     def chain():
-        s = {"behz_eager": behz.multiply_tensors(x1, x2), "behz_replay": program(x1, x2)}
+        s = {"behz_eager": behz.multiply_tensors(x1, x2), "behz_replay": bev.multiply(x1, x2)}
         s["multiply_rns"], _ = ctx.multiply_rns(cts[0], cts[1], device=on_card)
         s["rotate"] = ev.to_host(ev.rotate(ev.stage(cts[0]), 1))
         return s
@@ -1891,10 +1901,10 @@ def bfv_path(vec, device, rehearse):
         # the eager multiply and its replay, multiply_rns's replay at the
         # context's level, the rotation
         want = {}
-        for part in (behz_launches(BEHZ_K), behz_launches(BEHZ_K),
+        for part in (behz_launches(k), behz_launches(k),
                      behz_launches(cts[0].level + 1), rotate_launches):
-            for k, v in part.items():
-                want[k] = want.get(k, 0) + v
+            for name, v in part.items():
+                want[name] = want.get(name, 0) + v
         assert launches == want, (launches, want)
     assert torch.equal(steps["behz_eager"], eager) and torch.equal(steps["behz_replay"], eager)
 
@@ -1920,7 +1930,7 @@ def bfv_path(vec, device, rehearse):
     assert 0 < budget["after_multiply"] < budget["fresh"], budget
     out = {
         "n": n, "plain_modulus": t,
-        "behz": {"q_bits": [m.bit_length() for m in q],
+        "behz": {"moduli_of": vec.config_name, "q_bits": [m.bit_length() for m in q],
                  "bsk_bits": [m.bit_length() for m in tool.Bsk], "batch": BEHZ_BATCH,
                  "rows_vs_host_tool": len(BEHZ_ORACLE_ROWS),
                  "launches_per_multiply": per_multiply},
@@ -1934,7 +1944,7 @@ def bfv_path(vec, device, rehearse):
     if not rehearse:
         out["kernels_at_path_shapes"] = check_behz_shapes(behz, device)
         ms = {"behz_eager_batch": time_ms(lambda: behz.multiply_tensors(x1, x2), 5),
-              "behz_graph_replay_batch": time_ms(lambda: program(x1, x2), 10)}
+              "behz_graph_replay_batch": time_ms(lambda: bev.multiply(x1, x2), 10)}
         h1 = ev.stage(cts[0])
         ms["rotate"] = time_ms(lambda: ev.rotate(h1, 1), 5)
         out["ms"] = ms
@@ -1942,7 +1952,7 @@ def bfv_path(vec, device, rehearse):
         state = {"a": x1, "b": x2}
 
         def step():
-            o = program(state["a"], state["b"])
+            o = bev.multiply(state["a"], state["b"])
             state["a"], state["b"] = o[:, 0:2], o[:, 1:3]
 
         chain_ms = time_ms(step, CHAIN_STEPS)

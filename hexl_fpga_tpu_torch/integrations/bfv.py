@@ -11,7 +11,9 @@ relinearization and rotation (the tail's rounding lands in the noise):
   * multiplication             -> `multiply_rns`: the full-RNS BEHZ multiply,
     on the card by `ops/rns_behz_cuda.py` (`BehzCuda`) or on the host by
     `ops/rns_behz.py` (`BehzTool`); `multiply` is the textbook big-int tensor
-    product the RNS algorithm approximates (O(n^2): a small-n oracle)
+    product the RNS algorithm approximates (O(n^2): a small-n oracle);
+    `DeviceBfvEvaluator.multiply` is the BEHZ multiply on ciphertexts that
+    stay on the card
   * batching                   -> bgv.BatchEncoder (t = 1 mod 2n)
   * modulus switching          -> divide-and-round drop of q_last (no
     correction factor, unlike BGV)
@@ -33,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import config
-from ..ops import golden, nt, rns_behz, rns_behz_cuda
+from ..ops import golden, nt, rns_behz, rns_behz_cuda, word64 as w
 from . import ckks
 from .bgv import BatchEncoder
 from .ckks import Ciphertext
@@ -279,3 +281,65 @@ class BfvContext(ckks.CkksContext):
                 out[k, j] = (ct.data[k, j].astype(object)
                              * m_ntt[j].astype(object) % q).astype(np.uint64)
         return Ciphertext(data=out, level=ct.level, scale=1.0)
+
+
+class DeviceBfvEvaluator:
+    """Device-resident BFV multiply for a BfvContext, on `device` ("cuda",
+    the default, raises without a CUDA device; "cpu" runs the kernels' plain
+    versions): ciphertexts are (B, 2, k, n) int64 tensors of NTT limbs under
+    the level's k moduli, and results stay on the device.  The BFV
+    counterpart of ckks.DeviceCkksEvaluator and bgv.DeviceBgvEvaluator for
+    the one op BFV does not share with CKKS; relinearization and rotation are
+    DeviceCkksEvaluator's on BFV ciphertexts."""
+
+    def __init__(self, ctx: BfvContext, device="cuda"):
+        self.ctx = ctx
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "DeviceBfvEvaluator(device='cuda'): no CUDA device is "
+                "available; pass device='cpu' to run the plain versions")
+
+    def _level(self, k: int) -> int:
+        if not 1 <= k <= self.ctx.L:
+            raise ValueError(f"{k} limbs: a level has 1 to {self.ctx.L}")
+        return k
+
+    def stage(self, cts) -> torch.Tensor:
+        """A batch of ciphertexts at one level (a sequence of Ciphertext, or
+        (B, 2, k, n) u64 NTT-limb words) -> a (B, 2, k, n) int64 tensor on the
+        device, every word checked below its limb's modulus."""
+        if isinstance(cts, np.ndarray):
+            data = cts
+        else:
+            if len({ct.level for ct in cts}) != 1:
+                raise ValueError("the ciphertexts of a batch share one level")
+            data = np.stack([ct.data[:, : ct.level + 1] for ct in cts])
+        data = np.asarray(data, dtype=np.uint64)
+        if data.ndim != 4 or data.shape[1] != 2 or data.shape[3] != self.ctx.n:
+            raise ValueError(f"expected (B, 2, k, {self.ctx.n}) words, got "
+                             f"{data.shape}")
+        k = self._level(data.shape[2])
+        q = np.array(self.ctx.moduli[:k], dtype=np.uint64).reshape(1, 1, k, 1)
+        if (data >= q).any():
+            raise ValueError("a word at or above its limb's modulus: stage "
+                             "takes canonical NTT limbs")
+        return w.from_u64_np(data, self.device)
+
+    def to_host(self, x: torch.Tensor) -> np.ndarray:
+        """A device batch -> its u64 words, in the same shape."""
+        return w.to_u64_np(x)
+
+    def multiply(self, c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+        """Two (B, 2, k, n) staged batches at one level -> (B, 3, k, n), the
+        BEHZ tensor product scaled by t/q (the bits of multiply_rns), through
+        the level's BehzCuda program: one CUDA graph replay on the card."""
+        if c1.dim() != 4 or c1.shape != c2.shape:
+            raise ValueError(f"expected two (B, 2, k, n) batches of one shape, "
+                             f"got {tuple(c1.shape)} and {tuple(c2.shape)}")
+        behz = self.ctx._behz_cuda(self._level(c1.shape[2]), self.device)
+        if behz is None:
+            raise ValueError(
+                "device BEHZ unavailable at this shape (n beyond the transform "
+                "kernels or Bsk primes of 2^62 and more)")
+        return behz.program(c1.shape[0])(c1, c2)

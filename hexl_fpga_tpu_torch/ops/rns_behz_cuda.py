@@ -34,11 +34,13 @@ stops at 2^55): a lazy conversion sum is reduced before it could reach 2^64.
 `BehzCuda.multiply_tensors` is the composition (the reference's
 `_multiply_pairs`); `program(B)` replays it as one captured CUDA graph on the
 card (the reference jits it into one program), and `multiply_batch` /
-`multiply` take and give u64 numpy arrays through it.
+`multiply` take and give u64 numpy arrays through it.  `GRAPHS` counts the
+multiply bodies by how they ran.
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -49,6 +51,18 @@ from . import dyadic_cuda, ntt_cuda, rns_behz, twiddles, word64 as w
 from ..utils.graph import GraphProgram
 
 _M32 = 0xFFFFFFFF
+
+# multiply bodies by how they ran: a program captured (once per batch size),
+# replayed, or launched one by one (`multiply_tensors`, and a program's call
+# off the card); the capture's own run and its warm-up are not bodies.
+# Counted across the process, as keyswitch_cuda.GRAPHS counts dispatch_batch's
+GRAPHS = {"captures": 0, "replays": 0, "eager": 0}
+_graphs_count_lock = threading.Lock()
+
+
+def _count(kind: str) -> None:
+    with _graphs_count_lock:
+        GRAPHS[kind] += 1
 
 
 def fits(tool: rns_behz.BehzTool) -> bool:
@@ -239,7 +253,13 @@ class BehzCuda:
 
     def multiply_tensors(self, c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
         """(B, 2, k, n) canonical NTT-limb ciphertexts (int64 patterns) ->
-        (B, 3, k, n) canonical NTT-limb tensor output scaled by t/q."""
+        (B, 3, k, n) canonical NTT-limb tensor output scaled by t/q, launched
+        one by one (an eager body)."""
+        _count("eager")
+        return self._compose(c1, c2)
+
+    def _compose(self, c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+        """multiply_tensors' composition, uncounted: what a program captures."""
         self._check(c1, c2)
         T = self.tool
         k, n, B = T.k, T.n, c1.shape[0]
@@ -268,14 +288,14 @@ class BehzCuda:
         out = torch.stack([ntt_cuda.ntt_fwd(res[i], self._q_tabs[i]) for i in range(k)])
         return out.view(k, 3, B, n).permute(2, 1, 0, 3).contiguous()
 
-    def program(self, B: int) -> GraphProgram:
+    def program(self, B: int) -> "_CountedProgram":
         """The multiply of B ciphertext pairs as a GraphProgram, cached per B:
         on the card one captured CUDA graph, replayed with the eager
         composition's bits."""
         if B not in self._programs:
             T = self.tool
             ex = torch.zeros((B, 2, T.k, T.n), dtype=torch.int64, device=self.device)
-            self._programs[B] = GraphProgram(self.multiply_tensors, ex, ex)
+            self._programs[B] = _CountedProgram(GraphProgram(self._compose, ex, ex))
         return self._programs[B]
 
     # -- host conveniences ----------------------------------------------------
@@ -292,3 +312,21 @@ class BehzCuda:
         """(2, k, n) -> (3, k, n): the BehzTool.multiply drop-in."""
         return self.multiply_batch(np.asarray(ct1_ntt)[None],
                                    np.asarray(ct2_ntt)[None])[0]
+
+
+class _CountedProgram:
+    """A BEHZ GraphProgram whose calls `GRAPHS` counts: a replay where it
+    holds a captured graph, else an eager body.  `graph` is the program's."""
+
+    def __init__(self, program: GraphProgram):
+        self.program = program
+        if program.graph is not None:
+            _count("captures")
+
+    @property
+    def graph(self):
+        return self.program.graph
+
+    def __call__(self, c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+        _count("eager" if self.program.graph is None else "replays")
+        return self.program(c1, c2)

@@ -405,3 +405,33 @@ def test_dispatch_graphs_evicted_under_two_threads_hw():
     d = {k: v - before[k] for k, v in keyswitch_cuda.GRAPHS.items()}
     assert d["captures"] > len(ctx._graphs) and d["replays"] + d["eager"] == 120, d
     assert len(ctx._graphs) <= ctx.KEY_CACHE_SLOTS
+
+
+def test_bfv_evaluator_replays_the_eager_multiply_hw():
+    """DeviceBfvEvaluator.multiply on the card: its first call captures the
+    level's BEHZ program and replays it, later calls replay; each replay
+    equals the eager composition and, row by row, the host BehzTool, and
+    rns_behz_cuda.GRAPHS counts one capture, the replays and the eager body."""
+    from hexl_fpga_tpu_torch.integrations import BfvContext, DeviceBfvEvaluator
+    from hexl_fpga_tpu_torch.integrations.ckks import Ciphertext
+    from hexl_fpga_tpu_torch.ops import rns_behz_cuda
+
+    n, k, B = 1024, 3, 4
+    ctx = BfvContext(n, [int(p) for p in nt.generate_primes(k + 1, 52, n)], 65537, seed=5)
+    ev = DeviceBfvEvaluator(ctx, "cuda")
+    rng = np.random.default_rng(5)
+    qcol = np.array(ctx.moduli[:k], dtype=np.uint64).reshape(1, 1, k, 1)
+    c1, c2 = (rng.integers(0, 1 << 62, size=(B, 2, k, n), dtype=np.uint64) % qcol
+              for _ in range(2))
+    x1, x2 = ev.stage(c1), ev.stage(c2)
+    before = dict(rns_behz_cuda.GRAPHS)
+    got = [ev.multiply(x1, x2) for _ in range(2)]
+    eager = ctx._behz_cuda(k, ev.device).multiply_tensors(x1, x2)
+    assert all(torch.equal(g, eager) for g in got)
+    counted = {key: rns_behz_cuda.GRAPHS[key] - v for key, v in before.items()}
+    assert counted == {"captures": 1, "replays": 2, "eager": 1}, counted
+    out = ev.to_host(got[0])
+    for b in (0, B - 1):
+        want, _ = ctx.multiply_rns(*(Ciphertext(data=c[b], level=k - 1, scale=1.0)
+                                     for c in (c1, c2)), device=False)
+        np.testing.assert_array_equal(out[b], want)

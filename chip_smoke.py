@@ -96,8 +96,9 @@ Needs one CUDA device, nvcc, and nothing from the network.  It
      cell bfv16384.behz_multiply (n = 16384, the six 52-bit decomp primes,
      batch 8): the level's BehzCuda eager and the evaluator's multiply
      (its CUDA graph replay), bit for bit with each other and with the host
-     BehzTool on two batch rows; 3k + 1 ntt_inv, 2k + 1 ntt_fwd and 1
-     dyadic_mul launches a multiply, counted for a replay too, and
+     BehzTool on two batch rows; 3k + 1 ntt_inv, 2k + 1 ntt_fwd, 1
+     dyadic_mul, 1 behz_extend and 1 behz_floor_sk launches a multiply,
+     counted for a replay too, and
      rns_behz_cuda.GRAPHS counting the replays; multiply_rns on the card
      against the host tool, relinearize and mod_switch_to_next decrypted
      exactly, a rotation on DeviceCkksEvaluator against the host context,
@@ -1765,15 +1766,31 @@ def behz_launches(k):
     """Kernel launches of one BEHZ multiply at k q moduli: ntt_inv over the
     four inputs under q, the three outputs under q and under Bsk; ntt_fwd
     over the extension under Bsk and the result under q; one tensor product
-    over q u Bsk."""
-    return {"ntt_inv": 3 * k + 1, "ntt_fwd": 2 * k + 1, "dyadic_mul": 1}
+    over q u Bsk; one extension q -> Bsk and one fast floor +
+    Shenoy-Kumaresan."""
+    return {"ntt_inv": 3 * k + 1, "ntt_fwd": 2 * k + 1, "dyadic_mul": 1,
+            "behz_extend": 1, "behz_floor_sk": 1}
+
+
+def behz_conversion_bound(k: int, cols: int, floor_sk: bool):
+    """(bound_ms, bound_by) for behz_extend (floor_sk False) or
+    behz_floor_sk over `cols` columns: each limb read and written once
+    against the Harvey products of a column (a prologue per source limb, a
+    term per source and destination limb, the corrections)."""
+    D = k + 1
+    if floor_sk:  # fast floor (k + k D + 2D), then SK (k + k D + 1 + k)
+        words, products = 3 * k + 1, 3 * k + 2 * k * D + 2 * D + 1
+    else:  # prologue, conversion, SmMRq term and m_tilde^-1; the m_tilde residue
+        words, products = 2 * k + 1, k + k * D + 2 * D
+    return larger_bound(8 * words * cols, cols * (products * IMAD_LAZY_MUL + D))
 
 
 def check_behz_shapes(behz, device):
     """ntt_inv and ntt_fwd against their plain versions at the BEHZ
     multiply's rows (4B and 3B) under the first q and the first Bsk prime,
-    dyadic_mul at (B, 2, 2k + 1, n) over q u Bsk; each timed beside its
-    bound (`device_ms` filled in after the paths)."""
+    dyadic_mul at (B, 2, 2k + 1, n) over q u Bsk, behz_extend at (k, 4B, n)
+    and behz_floor_sk at (k, 3B, n) against the torch lane math; each timed
+    beside its bound (`device_ms` filled in after the paths)."""
     rng = np.random.default_rng(79)
     T = behz.tool
     B, k, n = BEHZ_BATCH, T.k, T.n
@@ -1809,7 +1826,29 @@ def check_behz_shapes(behz, device):
              "plain_ms": time_ms(lambda: dyadic_cuda.dyadic_multiply_plain(x, y, runner.meta), 2),
              "bound_ms": b_ms, "bound_by": b_by}
     profile_later(entry, "dyadic_mul", kern)
-    return entries + [entry]
+    entries.append(entry)
+    # the two conversion kernels at the multiply's shapes: the extension of
+    # the four inputs (k, 4B, n), the floor + SK of the three components
+    canon = lambda mods, R: w.from_u64_np(
+        rng.integers(0, 1 << 63, size=(len(mods), R, n), dtype=np.uint64)
+        % np.array(mods, dtype=np.uint64).reshape(-1, 1, 1), device)
+    coeff = canon(T.q, 4 * B)  # a name of its own: dyadic_mul's kern reads x later
+    d_q, d_bsk = canon(T.q, 3 * B), canon(T.Bsk, 3 * B)
+    for name, kern, plain, shape, floor_sk in (
+        ("behz_extend", lambda: behz.extend_to_bsk(coeff),
+         lambda: behz._extend_to_bsk_plain(coeff), [k, 4 * B, n], False),
+        ("behz_floor_sk", lambda: behz.floor_sk(d_q, d_bsk),
+         lambda: behz._floor_sk_plain(d_q, d_bsk), [k, 3 * B, n], True),
+    ):
+        b_ms, b_by = behz_conversion_bound(k, shape[1] * n, floor_sk)
+        entry = {"name": name, "shape": shape,
+                 "bsk_bits": [m.bit_length() for m in T.Bsk],
+                 "max_abs_err": assert_same(name, kern(), plain()),
+                 "ms": time_ms(kern, 20), "plain_ms": time_ms(plain, 2),
+                 "bound_ms": b_ms, "bound_by": b_by}
+        profile_later(entry, name, kern)
+        entries.append(entry)
+    return entries
 
 
 def bfv_path(vec, device, rehearse):
@@ -2872,9 +2911,10 @@ def main(rehearse: bool = False) -> int:
         ).stdout.strip().splitlines()[0]
         t0 = time.perf_counter()
         # one nvcc per source and the C++ runtime's g++ build, together
-        with ThreadPoolExecutor(3) as pool:
+        with ThreadPoolExecutor(4) as pool:
             builds = [pool.submit(ntt_cuda.build_kernels),
                       pool.submit(dyadic_cuda.build_kernels),
+                      pool.submit(rns_behz_cuda.build_kernels),
                       pool.submit(seconds_of, cpp_bridge.build_library)]
             cpp_build_s = [b.result() for b in builds][-1]
         emit({"device": smi, "kernel_build_s": time.perf_counter() - t0,

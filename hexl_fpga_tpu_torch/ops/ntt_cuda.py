@@ -480,15 +480,15 @@ def _check(x: torch.Tensor, tabs: ModulusTables, name: str,
         )
 
 
-def _launch(name: str, entry, x: torch.Tensor, *args) -> None:
+def _launch(name: str, entry, x: torch.Tensor, *args, table: dict | None = None) -> None:
     """Call one C entry on x's device and current stream; raise if the launch
-    was refused."""
+    was refused.  Counted in `table` (this module's LAUNCHES by default)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    count_launch(LAUNCHES, name)
+    count_launch(LAUNCHES if table is None else table, name)
 
 
 # ---------------------------------------------------------------------------

@@ -14,15 +14,24 @@ kernels and torch lane math on int64 bit patterns (`word64`):
                                    transformed extension): the reference
                                    writes it as lane math (`_tensor`), and it
                                    is exactly the 2x2 -> 3 product B4 computes;
-  * base extension / SmMRq /
-    fast floor / Shenoy-Kumaresan -> torch ops: every constant multiply is a
-                                   Harvey lazy multiply against a precon
-                                   computed here (exact in [0, 2m) for any u64
+  * base extension + SmMRq       -> one `behz_extend` launch, and fast floor +
+  * fast floor + Shenoy-Kumaresan   Shenoy-Kumaresan one `behz_floor_sk` launch
+                                   (`csrc/behz_kernels.cu`): a thread takes a
+                                   coefficient column through the whole
+                                   conversion in registers (in a scratch
+                                   tensor above MAX_K moduli), its constants
+                                   one packed table per object (`_pack`); on
+                                   the CPU the plain versions: torch ops in
+                                   which every constant multiply is a Harvey
+                                   lazy multiply against a precon computed
+                                   here (exact in [0, 2m) for any u64
                                    operand), and each fast base conversion is
                                    ONE lazy multiply of the (k, R, n) limbs by
                                    a (k, D, 1, 1) constant tensor, summed over
-                                   the source limbs and reduced once;
-  * m_tilde = 2^32 arithmetic    -> int64 ops on the low 32 bits, masked after
+                                   the source limbs and reduced once
+                                   (`kernel_path` decides);
+  * m_tilde = 2^32 arithmetic    -> uint32 in the kernel; in the plain version
+                                   int64 ops on the low 32 bits, masked after
                                    every product and sum (wrapping int64
                                    multiplication agrees with uint32 there).
 
@@ -35,11 +44,13 @@ stops at 2^55): a lazy conversion sum is reduced before it could reach 2^64.
 `_multiply_pairs`); `program(B)` replays it as one captured CUDA graph on the
 card (the reference jits it into one program), and `multiply_batch` /
 `multiply` take and give u64 numpy arrays through it.  `GRAPHS` counts the
-multiply bodies by how they ran.
+multiply bodies by how they ran, `LAUNCHES` the two conversion kernels.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Sequence
@@ -47,7 +58,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from . import dyadic_cuda, ntt_cuda, rns_behz, twiddles, word64 as w
+from . import _build, dyadic_cuda, ntt_cuda, rns_behz, twiddles, word64 as w
 from ..utils.graph import GraphProgram
 
 _M32 = 0xFFFFFFFF
@@ -63,6 +74,23 @@ _graphs_count_lock = threading.Lock()
 def _count(kind: str) -> None:
     with _graphs_count_lock:
         GRAPHS[kind] += 1
+
+
+# launches of the conversion kernels since the last reset; a wrapper adds one
+# exactly where it launches its kernel (ntt_cuda.count_launch, under its lock)
+LAUNCHES = {"behz_extend": 0, "behz_floor_sk": 0}
+
+KERNEL_SOURCE = "behz_kernels.cu"
+
+# the most q moduli the kernels hold in registers (BEHZ_MAX_K of the source);
+# above it they keep a column's limbs in a scratch tensor
+MAX_K = 8
+
+
+def reset_launch_counts() -> None:
+    with ntt_cuda._launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def fits(tool: rns_behz.BehzTool) -> bool:
@@ -138,6 +166,93 @@ class _Conversion:
         return w.barrett_canonical(terms.sum(0), self.q, self.barr)
 
 
+# -- the conversion kernels (csrc/behz_kernels.cu) ----------------------------
+
+
+def kernel_path(device) -> bool:
+    """Whether BehzCuda's conversions run as the two kernels (tensors on a
+    CUDA device, at every k) or as the plain torch lane math (on the CPU)."""
+    return torch.device(device).type == "cuda"
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    lib = _build.load(KERNEL_SOURCE)
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.hexl_behz_extend.argtypes = [p, p, ll, p, p, i, ll, p]
+    lib.hexl_behz_floor_sk.argtypes = [p, p, p, ll, p, p, i, ll, p]
+    for fn in (lib.hexl_behz_extend, lib.hexl_behz_floor_sk):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_kernels() -> None:
+    """Compile and load the kernels now (otherwise done at first launch)."""
+    _lib()
+
+
+def _launch(name: str, *args) -> None:
+    """ntt_cuda._launch of the C entry hexl_<name> on the device of its first
+    argument, tensors by pointer (None as NULL), counted in LAUNCHES."""
+    ntt_cuda._launch(name, getattr(_lib(), f"hexl_{name}"), args[0],
+                     *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                     table=LAUNCHES)
+
+
+def _check_limbs(name: str, table: torch.Tensor, x: torch.Tensor, *more) -> int:
+    """Validate a conversion's (k, R, n) input x, its other inputs `more` as
+    (tensor, e) pairs of k + e limbs over x's (R, n), and the table's type
+    (the kernel refuses a table not of k's size); returns k."""
+    if x.dim() != 3 or x.shape[0] < 1:
+        raise ValueError(f"{name}: expected (k, R, n) limbs with k >= 1, got "
+                         f"{tuple(x.shape)}")
+    k = x.shape[0]
+    for y, e in ((x, 0), *more):
+        if y.dtype != torch.int64 or not y.is_contiguous():
+            raise TypeError(f"{name}: expected contiguous int64 bit patterns, got "
+                            f"{y.dtype}{'' if y.is_contiguous() else ', not contiguous'}")
+        if y.shape != (k + e, *x.shape[1:]):
+            raise ValueError(f"{name}: expected {(k + e, *x.shape[1:])} limbs, got "
+                             f"{tuple(y.shape)}")
+        if y.device != table.device:
+            raise ValueError(f"{name}: limbs on {y.device}, table on {table.device}")
+    if table.dtype != torch.int64 or table.dim() != 1:
+        raise ValueError(f"{name}: expected a 1-D int64 table, got "
+                         f"{tuple(table.shape)} {table.dtype}")
+    return k
+
+
+def _scratch(x: torch.Tensor, limbs: int):
+    """Above MAX_K the kernels keep a column's limbs in device memory: (limbs,
+    R, n) words beside x; none at or below it."""
+    if x.shape[0] <= MAX_K:
+        return None
+    return torch.empty((limbs, *x.shape[1:]), dtype=torch.int64, device=x.device)
+
+
+def behz_extend(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """(k, R, n) canonical coefficients under q -> (k + 1, R, n) canonical
+    under Bsk, by the kernel behz_extend (BehzCuda.extend_to_bsk on the
+    card; `table` a BehzCuda's)."""
+    k = _check_limbs("behz_extend", table, x)
+    out = torch.empty((k + 1, *x.shape[1:]), dtype=torch.int64, device=x.device)
+    _launch("behz_extend", x, table, table.numel(), out, _scratch(x, k), k,
+            x[0].numel())
+    return out
+
+
+def behz_floor_sk(d_q: torch.Tensor, d_bsk: torch.Tensor,
+                  table: torch.Tensor) -> torch.Tensor:
+    """(k, R, n) and (k + 1, R, n) canonical tensor components under q and
+    Bsk -> (k, R, n) canonical under q, by the kernel behz_floor_sk
+    (BehzCuda.floor_sk on the card)."""
+    k = _check_limbs("behz_floor_sk", table, d_q, (d_bsk, 1))
+    out = torch.empty_like(d_q)
+    _launch("behz_floor_sk", d_q, d_bsk, table, table.numel(), out,
+            _scratch(d_q, 2 * k), k, d_q[0].numel())
+    return out
+
+
 class BehzCuda:
     """Device BEHZ multiply for one host BehzTool's parameters, on `device`
     ("cuda", the default, raises without a CUDA device; "cpu" runs every
@@ -198,13 +313,61 @@ class BehzCuda:
         self._inv_B_msk = _Harvey.of(T.inv_B_mod_msk, T.m_sk, dev)
         self._B_mod_q = _Harvey.of(T.B_mod_q.astype(object), q, dev)
         self._q_col = _col(q, dev)
+        self.table = self._pack()
         self._programs = {}
 
-    # -- lane math (rns_behz.BehzTool's primitives, every limb at once) -------
+    def _pack(self) -> torch.Tensor:
+        """The kernels' constant table from the constants above, held by the
+        object so that a captured graph reads it by pointer.  This list is its
+        layout (the source's Layout states it again): moduli q, then Bsk =
+        B u {m_sk}; a Harvey group of L constants, reduced mod their moduli,
+        then their L precons; a (k, k + 1) matrix row-major.
+        `table_slices` names each piece's words."""
+        T = self.tool
 
-    def _extend_to_bsk(self, x: torch.Tensor) -> torch.Tensor:
+        def harvey(h):
+            return [h.c.flatten(), h.pre.flatten()]
+
+        pieces = [
+            ("q", [self._q_col.flatten()]), ("bsk", [self._bsk_col.flatten()]),
+            ("ext_tilde", harvey(self._ext_tilde)),
+            ("qhat_mtilde", [self._qhat_mtilde.flatten()]),
+            ("neg_inv_q_mtilde", [_col([T.neg_inv_q_mod_mtilde], self.device).flatten()]),
+            ("q_to_bsk", harvey(self._q_to_bsk.mul)), ("q_mod_bsk", harvey(self._q_mod_bsk)),
+            ("inv_mtilde_bsk", harvey(self._inv_mtilde_bsk)),
+            ("floor_tilde", harvey(self._floor_tilde)), ("t_bsk", harvey(self._t_bsk)),
+            ("inv_q_bsk", harvey(self._inv_q_bsk)), ("sk_tilde", harvey(self._sk_tilde)),
+            ("b_to_q_msk", harvey(self._b_to_q_msk.mul)),
+            ("inv_B_msk", harvey(self._inv_B_msk)), ("B_mod_q", harvey(self._B_mod_q))]
+        parts, self.table_slices, at = [], {}, 0
+        for name, words in pieces:
+            part = torch.cat(words)
+            self.table_slices[name] = slice(at, at + part.numel())
+            at += part.numel()
+            parts.append(part)
+        return torch.cat(parts)
+
+    # -- the conversions: the kernels, or the plain versions (kernel_path) ----
+
+    def extend_to_bsk(self, x: torch.Tensor) -> torch.Tensor:
         """(k, R, n) canonical coefficients under q -> (k+1, R, n) under Bsk
         (BehzTool.extend_to_bsk)."""
+        if kernel_path(x.device):
+            return behz_extend(x, self.table)
+        return self._extend_to_bsk_plain(x)
+
+    def floor_sk(self, d_q: torch.Tensor, d_bsk: torch.Tensor) -> torch.Tensor:
+        """(k, R, n) and (k+1, R, n) canonical tensor components under q and
+        Bsk -> (k, R, n) canonical under q: the fast floor of the t-scaled
+        product, then Shenoy-Kumaresan back to q."""
+        if kernel_path(d_q.device):
+            return behz_floor_sk(d_q, d_bsk, self.table)
+        return self._floor_sk_plain(d_q, d_bsk)
+
+    # -- plain versions: lane math (BehzTool's primitives, every limb at once)
+
+    def _extend_to_bsk_plain(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain version of extend_to_bsk."""
         T = self.tool
         xt = self._ext_tilde(x)
         conv = self._q_to_bsk(xt)
@@ -216,6 +379,10 @@ class BehzCuda:
         m = self._bsk_col
         s = torch.where(neg, w.sub_mod(conv, term, m), w.add_mod(conv, term, m))
         return self._inv_mtilde_bsk(s)
+
+    def _floor_sk_plain(self, d_q: torch.Tensor, d_bsk: torch.Tensor) -> torch.Tensor:
+        """Plain version of floor_sk."""
+        return self._fastbconv_sk(self._fast_floor(d_q, d_bsk))
 
     def _fast_floor(self, d_q: torch.Tensor, d_bsk: torch.Tensor) -> torch.Tensor:
         """(k, R, n) and (k+1, R, n) canonical tensor components under q and
@@ -269,7 +436,7 @@ class BehzCuda:
         coeff = torch.stack([ntt_cuda.ntt_inv(rows[i].view(4 * B, n), self._q_tabs[i])
                              for i in range(k)])
         # 2.-3. extend to Bsk, forward under each Bsk modulus
-        ext = self._extend_to_bsk(coeff)                   # (k+1, 4B, n)
+        ext = self.extend_to_bsk(coeff)                    # (k+1, 4B, n)
         bsk = torch.stack([ntt_cuda.ntt_fwd(ext[d], self._bsk_tabs[d])
                            for d in range(k + 1)])
         # 4. the tensor product over q u Bsk in one launch
@@ -283,7 +450,7 @@ class BehzCuda:
         d_bsk = torch.stack([ntt_cuda.ntt_inv(comp[k + j].view(3 * B, n), self._bsk_tabs[j])
                              for j in range(k + 1)])
         # 6. fast floor, exact Shenoy-Kumaresan back to q
-        res = self._fastbconv_sk(self._fast_floor(d_q, d_bsk))  # (k, 3B, n)
+        res = self.floor_sk(d_q, d_bsk)                    # (k, 3B, n)
         # 7. back to the NTT domain under q
         out = torch.stack([ntt_cuda.ntt_fwd(res[i], self._q_tabs[i]) for i in range(k)])
         return out.view(k, 3, B, n).permute(2, 1, 0, 3).contiguous()

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..ops import dyadic_cuda, ntt_cuda, word64 as w
+from ..ops import dyadic_cuda, ntt_cuda, rns_behz_cuda, word64 as w
 from . import sharded
 from .mesh import Mesh
 
@@ -32,11 +32,13 @@ from .mesh import Mesh
 def reset_counts() -> None:
     ntt_cuda.reset_launch_counts()
     dyadic_cuda.reset_launch_counts()
+    rns_behz_cuda.reset_launch_counts()
 
 
 def counts() -> dict:
     """This process's launch counters, nonzero ones only."""
-    return {k: v for k, v in {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES}.items() if v}
+    return {k: v for k, v in {**ntt_cuda.LAUNCHES, **dyadic_cuda.LAUNCHES,
+                              **rns_behz_cuda.LAUNCHES}.items() if v}
 
 
 def to_plain(x):

@@ -23,7 +23,7 @@ import torch
 
 import hexl_fpga_tpu_torch as hexl
 from hexl_fpga_tpu_torch import config as config_mod
-from hexl_fpga_tpu_torch.ops import golden, keyswitch_cuda, nt, ntt_cuda, twiddles
+from hexl_fpga_tpu_torch.ops import golden, keyswitch_cuda, nt, ntt_cuda, twiddles, word64 as w64
 from hexl_fpga_tpu_torch.runtime import scheduler
 from hexl_fpga_tpu_torch.utils import vectors
 
@@ -435,3 +435,114 @@ def test_bfv_evaluator_replays_the_eager_multiply_hw():
         want, _ = ctx.multiply_rns(*(Ciphertext(data=c[b], level=k - 1, scale=1.0)
                                      for c in (c1, c2)), device=False)
         np.testing.assert_array_equal(out[b], want)
+
+
+def _behz_on_card(n, k, bits, t, aux_bits=None, moduli=None):
+    """BehzCuda on the card over k primes of `bits` bits (or `moduli`), with
+    its tool's q tables."""
+    from hexl_fpga_tpu_torch.ops import rns_behz, rns_behz_cuda
+
+    q = moduli or [int(p) for p in nt.generate_primes(k, bits, n)]
+    tabs = [twiddles.ntt_tables(n, m) for m in q]
+    tool = rns_behz.BehzTool(n, q, t, aux_bits=aux_bits)
+    return rns_behz_cuda.BehzCuda(tool, tabs, "cuda"), tabs
+
+
+def _canonical(rng, moduli, shape):
+    """Random canonical words below each modulus, the moduli along the first
+    axis (or along axis 2 for (B, 2, k, n) ciphertexts), on the card."""
+    axis = 0 if len(shape) == 3 else 2
+    col = np.array(moduli, dtype=np.uint64).reshape(
+        [-1 if a == axis else 1 for a in range(len(shape))])
+    return w64.from_u64_np(rng.integers(0, 1 << 63, size=shape, dtype=np.uint64) % col,
+                           "cuda")
+
+
+def _cell_moduli():
+    """The cell bfv16384.behz_multiply's q: the frozen vector 16384_6_7_7_2's
+    six 52-bit decomp primes."""
+    vec = vectors.load_json(os.path.join(TESTDATA, "16384_6_7_7_2_0.json.gz"))
+    return [int(m) for m in vec.moduli[:vec.decomp_modulus_size]]
+
+
+# case -> (n, k, bits, t, aux_bits) of the conversion kernels' tests
+_BEHZ_CASES = {
+    "k2_45": (4096, 2, 45, 65537, None), "k3_45": (4096, 3, 45, 65537, None),
+    "k7_52": (4096, 7, 52, 65537, None), "k8_52": (4096, 8, 52, 65537, None),
+    "bsk61": (4096, 4, 45, 257, 61),
+    # above MAX_K = 8: the same kernels with the limbs in a scratch tensor
+    "k9_45": (4096, 9, 45, 65537, None), "k13_50": (4096, 13, 50, 65537, None),
+    "bsk61_k10": (4096, 10, 45, 257, 61),
+}
+
+
+@pytest.mark.parametrize("case", ["cell", *_BEHZ_CASES])
+def test_behz_conversion_kernels_equal_the_plain_lane_math_hw(case):
+    """behz_extend and behz_floor_sk bit for bit against the torch lane math
+    they replace, one launch each: at the cell's shape (k = 6, 32 rows
+    extended and 24 floored, n = 16384, 52-bit q and 53-bit Bsk), at k = 2
+    and 3 with 45-bit primes, at k = 7 and 8 (MAX_K, the largest k held in
+    registers), at k = 9 and 13 (limbs in a scratch tensor), and at 62-bit
+    Bsk primes, where a conversion sum of lazy terms is reduced in groups
+    smaller than k, below and above MAX_K."""
+    from hexl_fpga_tpu_torch.ops import rns_behz_cuda
+
+    rows = (32, 24)
+    if case == "cell":
+        n, k = 16384, 6
+        behz, _ = _behz_on_card(n, k, 52, 65537, moduli=_cell_moduli())
+        assert [m.bit_length() for m in behz.tool.Bsk] == [53] * (k + 1)
+    else:
+        n, k, bits, t, aux_bits = _BEHZ_CASES[case]
+        behz, _ = _behz_on_card(n, k, bits, t, aux_bits=aux_bits)
+        if aux_bits:
+            assert behz._q_to_bsk.group < k and max(behz.tool.Bsk) > 1 << 61
+    T, rng = behz.tool, np.random.default_rng(k)
+    x = _canonical(rng, T.q, (k, rows[0], n))
+    d_q, d_bsk = _canonical(rng, T.q, (k, rows[1], n)), _canonical(rng, T.Bsk, (k + 1, rows[1], n))
+    before = dict(rns_behz_cuda.LAUNCHES)
+    got = (behz.extend_to_bsk(x), behz.floor_sk(d_q, d_bsk))
+    assert {key: v - before[key] for key, v in rns_behz_cuda.LAUNCHES.items()} == \
+        {"behz_extend": 1, "behz_floor_sk": 1}
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], behz._extend_to_bsk_plain(x))
+    assert torch.equal(got[1], behz._floor_sk_plain(d_q, d_bsk))
+
+
+@pytest.mark.parametrize("case", ["cell", "k10"])
+def test_behz_program_replays_the_plain_composition_hw(case, monkeypatch):
+    """BehzCuda.program(B) at the cell's chain (B = 8), and at k = 10 above
+    MAX_K (B = 2, the kernels' scratch allocated inside the capture): its
+    replay equals the eager composition on the kernels, the composition on
+    the plain lane math and, row by row, BehzTool.multiply; one multiply
+    launches behz_extend and behz_floor_sk once each, eager and replayed."""
+    from hexl_fpga_tpu_torch.ops import rns_behz_cuda
+
+    if case == "cell":
+        n, k, B = 16384, 6, 8
+        behz, tabs = _behz_on_card(n, k, 52, 65537, moduli=_cell_moduli())
+    else:
+        n, k, B = 4096, 10, 2
+        behz, tabs = _behz_on_card(n, k, 50, 65537)
+    rng = np.random.default_rng(8)
+    c1, c2 = (_canonical(rng, behz.tool.q, (B, 2, k, n)) for _ in range(2))
+    program = behz.program(B)
+    assert program.graph is not None
+
+    def launched(fn):
+        before = dict(rns_behz_cuda.LAUNCHES)
+        out = fn()
+        return out, {key: v - before[key] for key, v in rns_behz_cuda.LAUNCHES.items()}
+
+    once = {"behz_extend": 1, "behz_floor_sk": 1}
+    replay, counted = launched(lambda: program(c1, c2))
+    assert counted == once
+    eager, counted = launched(lambda: behz.multiply_tensors(c1, c2))
+    assert counted == once
+    monkeypatch.setattr(rns_behz_cuda, "kernel_path", lambda device: False)
+    plain, counted = launched(lambda: behz.multiply_tensors(c1, c2))
+    assert counted == dict.fromkeys(once, 0)
+    assert torch.equal(replay, eager) and torch.equal(replay, plain)
+    out, a, b = (w64.to_u64_np(v) for v in (replay, c1, c2))
+    for row in (0, B - 1):
+        np.testing.assert_array_equal(out[row], behz.tool.multiply(a[row], b[row], tabs))

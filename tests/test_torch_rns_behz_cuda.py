@@ -101,8 +101,8 @@ def test_bsk_beyond_the_reference_device_ceiling(n, k, bits, t, aux_bits):
 def test_transforms_and_tensor_launches_per_multiply(monkeypatch):
     """A multiply calls ntt_inv 3k + 1 times (k over 4B rows and k over 3B
     rows under q, k + 1 over 3B rows under Bsk), ntt_fwd 2k + 1 times (k + 1
-    over 4B rows under Bsk, k over 3B rows under q) and dyadic_multiply once
-    over (B, 2, 2k + 1, n)."""
+    over 4B rows under Bsk, k over 3B rows under q), dyadic_multiply once
+    over (B, 2, 2k + 1, n), and each base conversion once."""
     B, k = 2, 3
     tool, _, dev, (c1, c2) = make(64, k, 45, 257, seed=8, batch=B)
     calls = {"ntt_inv": [], "ntt_fwd": [], "dyadic_multiply": []}
@@ -118,11 +118,122 @@ def test_transforms_and_tensor_launches_per_multiply(monkeypatch):
     spy(ntt_cuda, "ntt_inv")
     spy(ntt_cuda, "ntt_fwd")
     spy(dyadic_cuda, "dyadic_multiply")
+    for name in ("extend_to_bsk", "floor_sk"):
+        real = getattr(dev, name)
+        monkeypatch.setattr(dev, name, lambda *xs, name=name, real=real: (
+            calls.setdefault(name, []).append(tuple(tuple(x.shape) for x in xs))
+            or real(*xs)))
     dev.multiply_tensors(w.from_u64_np(c1), w.from_u64_np(c2))
     rows = lambda r: (r * B, tool.n)
     assert sorted(calls["ntt_inv"]) == sorted([rows(4)] * k + [rows(3)] * (2 * k + 1))
     assert sorted(calls["ntt_fwd"]) == sorted([rows(4)] * (k + 1) + [rows(3)] * k)
     assert calls["dyadic_multiply"] == [(B, 2, 2 * k + 1, tool.n)]
+    # the two conversions, once each: the extension of the four inputs, the
+    # fast floor + Shenoy-Kumaresan of the three components
+    assert calls["extend_to_bsk"] == [((k, 4 * B, tool.n),)]
+    assert calls["floor_sk"] == [((k, 3 * B, tool.n), (k + 1, 3 * B, tool.n))]
+
+
+def _harvey(consts, moduli):
+    """A Harvey group's words: the constants reduced, then their precons."""
+    c = [int(v) % int(m) for v, m in zip(consts, moduli)]
+    return c + [(v << 64) // int(m) for v, m in zip(c, moduli)]
+
+
+@pytest.mark.parametrize("k,bits,t,aux_bits", [(2, 45, 65537, None), (4, 45, 257, 61)])
+def test_packed_table_equals_the_tools_constants(k, bits, t, aux_bits):
+    """The kernels' constant table, read back by its table_slices, holds
+    BehzTool's constants and their Harvey precons entry by entry, and
+    nothing else."""
+    tool, _, dev, _ = make(64, k, bits, t, seed=2, aux_bits=aux_bits)
+    T, D = tool, k + 1
+    q, Bsk, msk = T.q, T.Bsk, T.m_sk
+    got = [int(v) for v in w.to_u64_np(dev.table)]
+    rows = lambda m, i: [int(v) for v in m[i]]
+    want = {
+        "q": q, "bsk": Bsk,
+        "ext_tilde": _harvey([T.m_tilde * T.q_hat_inv[i] for i in range(k)], q),
+        "qhat_mtilde": [T.q_hat[i] % (1 << 32) for i in range(k)],
+        "neg_inv_q_mtilde": [T.neg_inv_q_mod_mtilde],
+        "q_to_bsk": _harvey(sum((rows(T.q_hat_mod_Bsk, i) for i in range(k)), []),
+                            Bsk * k),
+        "q_mod_bsk": _harvey([T.q_prod % m for m in Bsk], Bsk),
+        "inv_mtilde_bsk": _harvey(T.inv_mtilde_mod_Bsk, Bsk),
+        "floor_tilde": _harvey([t * T.q_hat_inv[i] for i in range(k)], q),
+        "t_bsk": _harvey([t] * D, Bsk),
+        "inv_q_bsk": _harvey(T.inv_q_mod_Bsk, Bsk),
+        "sk_tilde": _harvey(T.b_hat_inv, T.b),
+        "b_to_q_msk": _harvey(sum((rows(T.b_hat_mod_q, j) + [int(T.b_hat_mod_msk[j])]
+                                   for j in range(k)), []), (q + [msk]) * k),
+        "inv_B_msk": _harvey([T.inv_B_mod_msk], [msk]),
+        "B_mod_q": _harvey([T.B_prod % m for m in q], q),
+    }
+    layout = dev.table_slices
+    assert list(layout) == list(want) and len(got) == layout["B_mod_q"].stop
+    for name, at in layout.items():
+        assert got[at] == [int(v) for v in want[name]], name
+    assert dev.table.dtype == torch.int64 and dev.table.device == dev.device
+
+
+@pytest.mark.parametrize("device,kernels", [("cpu", False), (torch.device("cpu"), False),
+                                            ("cuda", True), (torch.device("cuda", 0), True)])
+def test_kernel_path_is_decided_by_the_device(device, kernels):
+    """The kernels serve tensors on a CUDA device, at every k; the CPU takes
+    the plain lane math."""
+    assert rns_behz_cuda.kernel_path(device) == kernels
+
+
+@pytest.mark.parametrize("k", (3, rns_behz_cuda.MAX_K + 1))
+def test_conversions_through_a_stubbed_launcher(k, monkeypatch):
+    """The kernel route with the launcher stubbed (it computes the plain
+    version into the wrapper's output): a multiply launches behz_extend once
+    over (k, 4B, n) -> (k + 1, 4B, n) and behz_floor_sk once over (k, 3B, n)
+    + (k + 1, 3B, n) -> (k, 3B, n), each with the object's table and its
+    size, its R * n columns and, above MAX_K only, a scratch of k (extension)
+    or 2k (floor + SK) rows; both are counted in LAUNCHES, and the multiply
+    gives the host tool's bits."""
+    B = 2
+    tool, tabs, dev, (c1, c2) = make(64, k, 45, 257, seed=4, batch=B)
+    n, launched = tool.n, []
+    plain = {"behz_extend": lambda x, out: out.copy_(dev._extend_to_bsk_plain(x)),
+             "behz_floor_sk": lambda d_q, d_bsk, out: out.copy_(
+                 dev._floor_sk_plain(d_q, d_bsk))}
+
+    def launch(name, *args):
+        at = next(i for i, a in enumerate(args) if a is dev.table)
+        assert args[at + 1] == dev.table.numel()
+        inputs, (out, scratch, kk, cols) = args[:at], args[at + 2:]
+        launched.append((name, [tuple(a.shape) for a in (*inputs, out)],
+                         None if scratch is None else tuple(scratch.shape), kk, cols))
+        plain[name](*inputs, out)
+        ntt_cuda.count_launch(rns_behz_cuda.LAUNCHES, name)
+
+    monkeypatch.setattr(rns_behz_cuda, "_launch", launch)
+    monkeypatch.setattr(rns_behz_cuda, "kernel_path", lambda device: True)  # as on a card
+    before = dict(rns_behz_cuda.LAUNCHES)
+    got = w.to_u64_np(dev.multiply_tensors(w.from_u64_np(c1), w.from_u64_np(c2)))
+    np.testing.assert_array_equal(got, host_batch(tool, tabs, c1, c2))
+    big = k > rns_behz_cuda.MAX_K
+    assert launched == [
+        ("behz_extend", [(k, 4 * B, n), (k + 1, 4 * B, n)],
+         (k, 4 * B, n) if big else None, k, 4 * B * n),
+        ("behz_floor_sk", [(k, 3 * B, n), (k + 1, 3 * B, n), (k, 3 * B, n)],
+         (2 * k, 3 * B, n) if big else None, k, 3 * B * n)]
+    assert {key: v - before[key] for key, v in rns_behz_cuda.LAUNCHES.items()} == \
+        dict.fromkeys(before, 1)
+
+
+def test_conversion_wrappers_refuse_what_the_kernels_do_not_take():
+    _, _, dev, _ = make(64, 2, 45, 257, seed=1)
+    x = torch.zeros((2, 4, 64), dtype=torch.int64)
+    with pytest.raises(ValueError, match="limbs"):
+        rns_behz_cuda.behz_floor_sk(x, x, dev.table)  # d_bsk needs k + 1 limbs
+    with pytest.raises(ValueError, match="table"):
+        rns_behz_cuda.behz_extend(x, dev.table.to(torch.int32))
+    with pytest.raises(ValueError, match="k >= 1"):
+        rns_behz_cuda.behz_extend(x[:0], dev.table)
+    with pytest.raises(TypeError, match="contiguous"):
+        rns_behz_cuda.behz_extend(x.transpose(1, 2), dev.table)
 
 
 def test_program_on_the_cpu_is_the_eager_composition():

@@ -113,7 +113,6 @@ def scheme_context_from_state(n, moduli, s, relin_keys, rot_keys=None,
         ctx._setup(n, moduli, 1.0, seed)
         ctx.encoder = bgv.BatchEncoder(n, ctx.t)
     ctx.s = [int(v) for v in s]
-    ctx._embedding()
     ctx.relin_keys = [np.array(k, dtype=np.uint64) for k in relin_keys]
     ctx._rot_keys = {int(g): [np.array(k, dtype=np.uint64) for k in keys]
                      for g, keys in dict(rot_keys or {}).items()}

@@ -9,11 +9,16 @@ operation that is not hoisted:
                          and every keyswitch through the port's public API
                          (api.DyadicMultiply, api.KeySwitch)
   DeviceCkksEvaluator    device-resident evaluation on int64 tensors: Galois
-                         gather + KeySwitchContext._build (rotate, conjugate),
+                         gather + KeySwitchContext._dispatch_body (rotate,
+                         conjugate: a replayed graph once a key set repeats),
                          dyadic_mul + _build (multiply_relin), ntt_inv +
                          word64 lane math + ntt_fwd (rescale), hoisted
                          rotations, and the BSGS matrix-vector product, whose
                          fused form replays as one CUDA graph
+  DeviceLinearTransform  one matrix staged once for that product (its
+                         diagonals encoded, or taken already encoded, and
+                         every key and index it reads), applied to any
+                         ciphertext of its level
 
 The reference's host context builds two negacyclic products by a Python
 schoolbook loop (s^2 for the relinearization key, a*s in every encrypt), about
@@ -23,10 +28,16 @@ random draw is the reference's, one `rng.integers` per coefficient where it
 draws so.  The embedding matrix E is built and applied as the reference
 builds it (BLAS summation order decides encode's rounding); at n = 16384 it
 is (8192, 16384) complex128, 2.1 GB, and each encode makes its conjugate
-transpose for the call, another 2.1 GB.
+transpose for the call, another 2.1 GB.  A context builds E at its first
+encode or decode, so one that only holds keys for a device evaluator never
+does.
 
 SEAL_N, SEAL_BITS, SEAL_SCALE and `seal_moduli` give the SEAL bridge's CKKS
-deployment; MATVEC_DIAGONALS and MATVEC_N1 the benchmark's matvec shape.
+deployment; MATVEC_DIAGONALS and MATVEC_N1 the matvec shape of bench.py and
+the smoke.
+
+ROTATIONS counts the evaluator's rotations by route and LINEAR_TRANSFORMS the
+matrix-vector bodies by how they ran, across the process (`reset_counters`).
 
 Device values are one int64 bit pattern per u64 (`ops/word64.py`), a
 ciphertext one (2, level + 1, n) tensor where the reference carries an
@@ -38,6 +49,7 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from dataclasses import dataclass
 from typing import List, Sequence
 
@@ -53,8 +65,40 @@ from ..utils.graph import GraphProgram
 # (experimental/bridge-seal/tests/keyswitch-example.cpp:30-33): n = 16384,
 # moduli of {52, 40, 40, 40, 40, 40, 52} bits, scale 2^40
 SEAL_N, SEAL_BITS, SEAL_SCALE = 16384, (52, 40, 40, 40, 40, 40, 52), 2.0 ** 40
-# the benchmark's encrypted matrix-vector product: 16 diagonals, n1 = 4
+# bench.py's and the smoke's encrypted matrix-vector product: 16 diagonals,
+# n1 = 4
 MATVEC_DIAGONALS, MATVEC_N1 = 16, 4
+
+# rotations by the route that ran them: "dispatched" a gather + keyswitch
+# through dispatch_batch's body cache (rotate, conjugate: a replay once the
+# key set repeats, counted in keyswitch_cuda.GRAPHS), "eager" a gather +
+# keyswitch launched one by one (a giant step), "hoisted" one apply of a
+# hoisted decomposition, "hoisted_rows" the rows of a batched hoisted apply;
+# and the matrix-vector bodies by how they ran: captured into a CUDA graph,
+# replayed, or launched one by one.  Counted across the process, as
+# keyswitch_cuda.GRAPHS counts dispatch_batch's bodies.  A route traced into a
+# capture runs nothing and is not counted; a replay counts in
+# LINEAR_TRANSFORMS only.
+ROTATIONS = {"dispatched": 0, "eager": 0, "hoisted": 0, "hoisted_rows": 0}
+LINEAR_TRANSFORMS = {"captures": 0, "replays": 0, "eager": 0}
+_counters_lock = threading.Lock()
+
+
+def _count(counter: dict, kind: str, times: int = 1) -> None:
+    with _counters_lock:
+        counter[kind] += times
+
+
+def _count_rotations(x: torch.Tensor, kind: str, times: int = 1) -> None:
+    if not (x.is_cuda and torch.cuda.is_current_stream_capturing()):
+        _count(ROTATIONS, kind, times)
+
+
+def reset_counters() -> None:
+    """ROTATIONS and LINEAR_TRANSFORMS back to zero."""
+    with _counters_lock:
+        for counter in (ROTATIONS, LINEAR_TRANSFORMS):
+            counter.update(dict.fromkeys(counter, 0))
 
 
 def seal_moduli(n: int) -> List[int]:
@@ -156,7 +200,6 @@ class CkksContext:
         self._setup(n, moduli, scale, seed)
         rng = self._rng
         self.s = [int(v) for v in rng.integers(-1, 2, size=n)]  # ternary
-        self._embedding()
         # relinearization keys: s^2 -> s (small integers, centered)
         self.relin_keys = self._make_switch_keys(_negacyclic_square_small(self.s))
         self._rot_keys = {}
@@ -176,6 +219,16 @@ class CkksContext:
             for q in self.moduli
         ]
         self._rng = np.random.default_rng(seed)
+
+    def __getattr__(self, name):
+        # E, built at its first use (encode, decode); a scheme whose
+        # _embedding builds nothing has none
+        if name == "E" and "n" in self.__dict__:
+            self._embedding()
+            if "E" in self.__dict__:
+                return self.__dict__["E"]
+        raise AttributeError(
+            f"{type(self).__name__!r} object has no attribute {name!r}")
 
     def _embedding(self):
         """Canonical embedding: slot j evaluated at zeta^{5^j}, zeta = e^{i pi/n}
@@ -519,14 +572,19 @@ class DeviceCkksEvaluator:
         keys, kp = ks.device_keys(self.ctx._galois_keys_for(g))
         return keys, kp, galois_cuda.galois_index(self.ctx.n, g, self.device)
 
-    def _galois_data(self, x: torch.Tensor, staged) -> torch.Tensor:
+    def _galois_data(self, x: torch.Tensor, staged,
+                     dispatch: bool = False) -> torch.Tensor:
         """NTT-domain automorphism (one gather) + keyswitch of c1(X^g), with
-        g's `_galois_staged` tensors."""
+        g's `_galois_staged` tensors.  dispatch=True runs the keyswitch
+        through dispatch_batch's body cache, which replays a captured graph
+        once the key set repeats (never inside a composition that is itself
+        being captured); else it is launched one by one."""
         ks = self._ks_ctx(x.shape[1])
         keys, kp, index = staged
+        _count_rotations(x, "dispatched" if dispatch else "eager")
         rot = x.index_select(-1, index)
-        return ks._build(rot[1][None], keys, kp, self._base(rot[0]),
-                         self._msf(ks))[0]
+        body = ks._dispatch_body if dispatch else ks._build
+        return body(rot[1][None], keys, kp, self._base(rot[0]), self._msf(ks))[0]
 
     def _addsub_data(self, a: torch.Tensor, b: torch.Tensor, sub: bool):
         q = self._moduli_col(a.shape[1])
@@ -564,6 +622,7 @@ class DeviceCkksEvaluator:
         """S hoisted rotations of one decomposition as one batched apply:
         (S, 2, nl, n)."""
         keys, kp, index = staged
+        _count_rotations(c0, "hoisted_rows", keys.shape[0])
         res = self._base(c0).expand(keys.shape[0], -1, -1, -1).contiguous()
         return ks._apply_hoisted_many(dec, res, keys, kp, self._msf(ks), index)
 
@@ -572,7 +631,8 @@ class DeviceCkksEvaluator:
     def _apply_galois(self, h: DeviceCkksCiphertext, g: int):
         ks = self._ks_ctx(h.level + 1)
         return DeviceCkksCiphertext(
-            self._galois_data(h.data, self._galois_staged(ks, g)), h.level, h.scale)
+            self._galois_data(h.data, self._galois_staged(ks, g), dispatch=True),
+            h.level, h.scale)
 
     def rotate(self, h: DeviceCkksCiphertext, r: int) -> DeviceCkksCiphertext:
         """Left-rotate slots by r, fully on device (gather + keyswitch)."""
@@ -692,6 +752,7 @@ class DeviceCkksEvaluator:
         sigma = galois_cuda.ntt_galois_sigma(self.ctx.n, g)
         keys, kp = ks.device_keys(self.ctx._galois_keys_for(g), hoist_perm=sigma)
         index = galois_cuda.galois_index(self.ctx.n, g, self.device)
+        _count_rotations(hh.dec, "hoisted")
         out = ks._apply_hoisted(hh.dec, self._base(hh.data[0]), keys, kp,
                                 self._msf(ks), index)[0]
         return DeviceCkksCiphertext(out, hh.level, hh.scale)
@@ -726,11 +787,16 @@ class DeviceCkksEvaluator:
 
     # -- encrypted matrix-vector product (BSGS diagonal method) ---------------
 
-    def _bsgs(self, diagonals, bsgs_n1):
+    def _bsgs(self, diagonals, bsgs_n1, shape=None):
+        """Diagonals by index mod slots, n1 and the giant-step groups
+        [(j, [d, ...]), ...]; each diagonal of `shape` (default: a slot
+        vector)."""
         slots = self.ctx.slots
-        diags = {d % slots: np.asarray(v) for d, v in diagonals.items()}
+        diags = {d % slots: v if shape else np.asarray(v)
+                 for d, v in diagonals.items()}
         assert diags, "linear_transform requires at least one diagonal"
-        assert all(v.shape == (slots,) for v in diags.values())
+        shape = tuple(shape or (slots,))
+        assert all(tuple(v.shape) == shape for v in diags.values())
         n1 = bsgs_n1 or max(1, int(round(math.sqrt(len(diags)))))
         groups: "dict[int, list[int]]" = {}
         for d in sorted(diags):
@@ -762,24 +828,27 @@ class DeviceCkksEvaluator:
             out = inner if out is None else self.add(out, inner)
         return out
 
-    def linear_transform_fused(self, h: DeviceCkksCiphertext, diagonals,
+    def stage_linear_transform(self, diagonals, level: int,
                                bsgs_n1: int | None = None,
-                               return_program: bool = False):
-        """linear_transform as ONE function of the ciphertext tensor, every
-        key, permutation and diagonal staged first: the hoisted
-        decomposition, all baby rotations in one batched apply, the
-        plaintext products, the group sums, the giant-step rotations and the
-        final sum.  The same operations in the same order as
-        linear_transform, so the same bits.
+                               encoded: bool = False) -> "DeviceLinearTransform":
+        """Stage one matrix for linear_transform's product on ciphertexts at
+        `level`: every tensor the product reads but the ciphertext.  That is
+        each giant-step group's diagonal planes, the baby steps' stacked
+        sigma^{-1}-permuted keys and output permutations (one hoisted
+        decomposition, all baby rotations in one batched apply) and the giant
+        steps' keys and Galois indices.
 
-        return_program=True also returns a GraphProgram: a callable
-        of the (2, nl, n) tensor that, on CUDA, replays one captured
-        torch.cuda.CUDAGraph of the whole product (the counterpart of the
-        reference's one jitted program); `.eager` runs the composition
-        launch by launch."""
-        diags, n1, group_list = self._bsgs(diagonals, bsgs_n1)
+        `diagonals` maps d to u_d, a slot vector, which is encoded here once
+        (ctx.encode of roll(u_d, j*n1) at ctx.scale, as linear_transform
+        encodes it); with encoded=True it maps d to that encoding already
+        made: the (nl, n) NTT-domain plane of roll(u_d, j*n1), canonical u64
+        words (numpy) or int64 bit patterns (a tensor), at a scale of the
+        caller's (the product's scale is h.scale times it; the object takes
+        ctx.scale)."""
+        nl = level + 1
+        diags, n1, group_list = self._bsgs(diagonals, bsgs_n1,
+                                           (nl, self.ctx.n) if encoded else None)
         slots, n = self.ctx.slots, self.ctx.n
-        nl = h.level + 1
         ks = self._ks_ctx(nl)
         baby_rot = sorted({d % n1 for d in diags} - {0})
         baby_staged = (self._hoisted_keys(ks, [pow(5, r, 2 * n) for r in baby_rot])
@@ -790,32 +859,101 @@ class DeviceCkksEvaluator:
         giant = {j: self._galois_staged(ks, pow(5, (j * n1) % slots, 2 * n))
                  for j, _ in group_list if j}
         meta = self._mul_meta(nl)
-        planes = [
-            torch.stack([
-                self._plain_planes(self.ctx.encode(np.roll(diags[d], j * n1)), nl)
-                for d in ds
-            ])
-            for j, ds in group_list
-        ]                                             # per group (len(ds), nl, n)
+
+        def plane(d, j):
+            if not encoded:
+                return self._plain_planes(self.ctx.encode(np.roll(diags[d], j * n1)), nl)
+            if isinstance(diags[d], torch.Tensor):
+                return diags[d].to(self.device, torch.int64)
+            return w.from_u64_np(np.asarray(diags[d], dtype=np.uint64), self.device)
+
+        planes = [torch.stack([plane(d, j) for d in ds])[:, None]
+                  for j, ds in group_list]            # per group (len(ds), 1, nl, n)
+        # each group's babies as rows of run's stack of them (x, then the
+        # hoisted rotations in baby_rot's order): None where it takes all
+        row = {0: 0, **{r: k + 1 for k, r in enumerate(baby_rot)}}
+        picks = [[row[d % n1] for d in ds] for _, ds in group_list]
+        picks = [None if rows == list(range(len(row))) else
+                 torch.tensor(rows, dtype=torch.int64, device=self.device)
+                 for rows in picks]
+        q = self._moduli_col(nl)
 
         def run(x: torch.Tensor) -> torch.Tensor:
-            babies = {0: x}
+            babies = x[None]
             if baby_rot:
                 outs = self._hoisted_many_data(ks._decompose(x[1][None]), x[0],
                                                ks, baby_staged)
-                babies.update(zip(baby_rot, outs))
+                babies = torch.cat([babies, outs])
             acc = None
-            for (j, ds), p in zip(group_list, planes):
-                inner = None
-                for di, d in enumerate(ds):
-                    term = self._mul_plain_data(babies[d % n1], p[di], meta)
-                    inner = term if inner is None else self._addsub_data(inner, term, False)
+            for (j, _), p, pick in zip(group_list, planes, picks):
+                b = babies if pick is None else babies.index_select(0, pick)
+                # the group's products in one pass, summed pairwise
+                terms = self._mul_plain_data(b, p, meta)
+                while terms.shape[0] > 1:
+                    h = terms.shape[0] // 2
+                    pair = w.add_mod(terms[:h], terms[h:2 * h], q)
+                    terms = torch.cat([pair, terms[2 * h:]]) if terms.shape[0] % 2 else pair
+                inner = terms[0]
                 if j:
                     inner = self._galois_data(inner, giant[j])
                 acc = inner if acc is None else self._addsub_data(acc, inner, False)
             return acc
 
-        out = DeviceCkksCiphertext(run(h.data), h.level, h.scale * self.ctx.scale)
+        return DeviceLinearTransform(run, level, self.ctx.scale)
+
+    def linear_transform_fused(self, h: DeviceCkksCiphertext, diagonals,
+                               bsgs_n1: int | None = None,
+                               return_program: bool = False):
+        """linear_transform as ONE function of the ciphertext tensor, every
+        key, permutation and diagonal staged first (stage_linear_transform):
+        the hoisted decomposition, all baby rotations in one batched apply,
+        the plaintext products (a group's in one pass), the group sums, the
+        giant-step rotations and the final sum.  The same operations as
+        linear_transform on canonical residues, so the same bits.
+
+        return_program=True also returns the staged matrix's program (a
+        GraphProgram): a callable of the (2, nl, n) tensor that, on CUDA,
+        replays one captured torch.cuda.CUDAGraph of the whole product (the
+        counterpart of the reference's one jitted program); `.eager` runs
+        the composition launch by launch."""
+        lt = self.stage_linear_transform(diagonals, h.level, bsgs_n1)
+        out = lt(h)
         if return_program:
-            return out, GraphProgram(run, h.data)
+            return out, lt.program(h.data)
         return out
+
+
+class DeviceLinearTransform:
+    """One matrix staged for the BSGS product at one level
+    (DeviceCkksEvaluator.stage_linear_transform).  Called on a
+    DeviceCkksCiphertext of that level it runs the product launch by launch;
+    `program(x)` makes the callable of (2, nl, n) tensors that replays it as
+    one captured CUDA graph on the card, on any ciphertext of the level.
+    Both are counted in LINEAR_TRANSFORMS."""
+
+    def __init__(self, run, level: int, scale: float):
+        self.run, self.level, self.scale = run, level, scale
+
+    def __call__(self, h: DeviceCkksCiphertext) -> DeviceCkksCiphertext:
+        assert h.level == self.level, (h.level, self.level)
+        _count(LINEAR_TRANSFORMS, "eager")
+        return DeviceCkksCiphertext(self.run(h.data), h.level, h.scale * self.scale)
+
+    def program(self, example: torch.Tensor) -> GraphProgram:
+        """The product as a GraphProgram of one (2, nl, n) tensor shaped as
+        `example`: captured on CUDA after a warm-up run, eager on the CPU."""
+        return _LinearTransformProgram(self.run, example)
+
+
+class _LinearTransformProgram(GraphProgram):
+    """A GraphProgram whose calls LINEAR_TRANSFORMS counts: a replay where it
+    holds a captured graph, else an eager body."""
+
+    def __init__(self, run, example: torch.Tensor):
+        super().__init__(run, example)
+        if self.graph is not None:
+            _count(LINEAR_TRANSFORMS, "captures")
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        _count(LINEAR_TRANSFORMS, "eager" if self.graph is None else "replays")
+        return super().__call__(x)

@@ -271,6 +271,93 @@ def test_linear_transform_fused_equals_unfused(pair, ev, cts, diag_idx, n1):
     assert np.max(np.abs(P.decrypt(ev.to_host(out)) - want)) < NOISE
 
 
+@pytest.mark.parametrize("form", ["u64", "tensor"])
+@pytest.mark.parametrize("diag_idx,n1", [
+    (tuple(range(16)), 4),   # the benchmark's matvec shape, cut to N
+    ((0, 1, 5, 9, 14), 4),   # sparse groups, a group without its 0 diagonal
+])
+def test_encoded_diagonals_equal_slot_vectors(pair, ev, cts, diag_idx, n1, form):
+    """A matrix staged from diagonals already encoded (the NTT planes of
+    roll(u_d, j*n1) at the context's scale, as u64 words or int64 tensors)
+    gives linear_transform_fused's bits on slot vectors, eager and through
+    its program, and decrypts to M z."""
+    P = pair[1]
+    rng = np.random.default_rng(len(diag_idx) + n1)
+    diags = {d: rng.standard_normal(N // 2) * 0.5 for d in diag_idx}
+    h = ev.stage(cts[1])
+    nl = h.level + 1
+    planes = {d: P._to_ntt_limbs(P.encode(np.roll(u, d // n1 * n1)), nl)
+              for d, u in diags.items()}
+    if form == "tensor":
+        planes = {d: torch.from_numpy(p.view(np.int64)) for d, p in planes.items()}
+    want = ev.linear_transform_fused(h, diags, bsgs_n1=n1)
+    lt = ev.stage_linear_transform(planes, h.level, n1, encoded=True)
+    got = lt(h)
+    assert torch.equal(got.data, want.data)
+    assert (got.level, got.scale) == (want.level, want.scale)
+    program = lt.program(h.data)
+    assert torch.equal(program(h.data), want.data)
+    z = vec(2)
+    want_z = sum(diags[d] * np.roll(z, -d) for d in diags)
+    assert np.max(np.abs(P.decrypt(ev.to_host(got)) - want_z)) < NOISE
+
+
+def test_counters_count_each_route(ev, cts):
+    """ROTATIONS by route and LINEAR_TRANSFORMS by body; reset_counters
+    zeroes both.  rotate and conjugate go through dispatch_batch's body
+    cache, a giant step of the product is launched one by one; off the card
+    every program call is an eager body."""
+    def rotations(dispatched, eager, hoisted, rows):
+        return {"dispatched": dispatched, "eager": eager, "hoisted": hoisted,
+                "hoisted_rows": rows}
+
+    ckks.reset_counters()
+    assert ckks.ROTATIONS == rotations(0, 0, 0, 0)
+    assert ckks.LINEAR_TRANSFORMS == {"captures": 0, "replays": 0, "eager": 0}
+    h = ev.stage(cts[0])
+    graphs = dict(keyswitch_cuda.GRAPHS)
+    ev.rotate(h, 1)
+    ev.conjugate(h)
+    assert ckks.ROTATIONS == rotations(2, 0, 0, 0)
+    assert keyswitch_cuda.GRAPHS["eager"] == graphs["eager"] + 2
+    ev.rotate_hoisted(ev.hoist(h), 2)
+    ev.rotate_many(h, [0, 1, 2, 3])
+    assert ckks.ROTATIONS == rotations(2, 0, 1, 3)
+    rng = np.random.default_rng(5)
+    diags = {d: rng.standard_normal(N // 2) * 0.5 for d in range(16)}
+    _, program = ev.linear_transform_fused(h, diags, bsgs_n1=4, return_program=True)
+    assert ckks.LINEAR_TRANSFORMS == {"captures": 0, "replays": 0, "eager": 1}
+    assert ckks.ROTATIONS == rotations(2, 3, 1, 6)
+    program(h.data)
+    program(h.data)
+    assert ckks.LINEAR_TRANSFORMS == {"captures": 0, "replays": 0, "eager": 3}
+    assert ckks.ROTATIONS == rotations(2, 9, 1, 12)
+    assert keyswitch_cuda.GRAPHS["eager"] == graphs["eager"] + 2
+    ckks.reset_counters()
+    assert not any(ckks.ROTATIONS.values()) and not any(ckks.LINEAR_TRANSFORMS.values())
+
+
+def test_context_builds_the_embedding_at_its_first_encode(runtimes):
+    """A fresh context holds no E until an encode or decode needs it; then
+    E and encode's integers are the reference's, and the draws are the
+    same (E draws nothing)."""
+    J = jckks.CkksContext(N, MODULI, SCALE, seed=8)
+    P = ckks.CkksContext(N, MODULI, SCALE, seed=8)
+    assert "E" not in vars(P)
+    assert P._rng.bit_generator.state == J._rng.bit_generator.state
+    for a, b in zip(P.galois_keys(1), J.galois_keys(1)):
+        np.testing.assert_array_equal(a, b)
+    assert "E" not in vars(P)
+    z = vec(10)
+    assert P.encode(z) == J.encode(z)
+    assert "E" in vars(P)
+    np.testing.assert_array_equal(P.E, J.E)
+    Q = ckks.CkksContext(N, MODULI, SCALE, seed=8)
+    np.testing.assert_array_equal(Q.decode(J.encode(z), SCALE), J.decode(J.encode(z), SCALE))
+    with pytest.raises(AttributeError):
+        Q.not_an_attribute
+
+
 def test_linear_transform_program_reads_only_what_it_staged(ev, cts, monkeypatch):
     """A captured graph replays raw pointers, so once built the program must
     read no key, Galois index or constant from a cache that may evict and
